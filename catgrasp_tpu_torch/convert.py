@@ -1,0 +1,67 @@
+"""Build the port's types from dicts of numpy arrays, one field per key.
+
+The JAX package's state lives in pytrees (``ShapeLib``, ``SceneState``,
+``SceneParams``, ``StaticEnv``).  Flattening one with ``np.asarray`` per
+field and handing the dict over gives the port the same scene, so both
+sides can compute on identical inputs.  ``ShapeLib``'s nested CSG tree
+takes the keys ``csg.types``, ``csg.ops``, ``csg.params`` and
+``csg.offsets``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .device import resolve_device
+from .geom.csg import CsgShape
+from .sim.engine import StaticEnv
+from .sim.types import SceneParams, SceneState, ShapeLib
+
+
+def _t(d: dict, key: str, dev, dtype=None) -> torch.Tensor:
+    a = np.asarray(d[key])
+    if dtype is None:
+        dtype = {np.dtype(bool): torch.bool}.get(a.dtype)
+        if dtype is None:
+            dtype = torch.int64 if a.dtype.kind in "iu" else torch.float32
+    return torch.tensor(a, dtype=dtype, device=dev)
+
+
+def shape_lib_from_numpy(d: dict, device=None) -> ShapeLib:
+    dev = resolve_device(device)
+    return ShapeLib(
+        csg=CsgShape(types=_t(d, "csg.types", dev, torch.int32),
+                     ops=_t(d, "csg.ops", dev, torch.int32),
+                     params=_t(d, "csg.params", dev),
+                     offsets=_t(d, "csg.offsets", dev)),
+        surf_pts=_t(d, "surf_pts", dev),
+        surf_normals=_t(d, "surf_normals", dev),
+        volume=_t(d, "volume", dev),
+        inertia_unit=_t(d, "inertia_unit", dev),
+        radius=_t(d, "radius", dev),
+        bounds=_t(d, "bounds", dev),
+    )
+
+
+def scene_state_from_numpy(d: dict, device=None) -> SceneState:
+    dev = resolve_device(device)
+    return SceneState(pos=_t(d, "pos", dev), quat=_t(d, "quat", dev),
+                      linvel=_t(d, "linvel", dev), angvel=_t(d, "angvel", dev),
+                      active=_t(d, "active", dev, torch.bool))
+
+
+def scene_params_from_numpy(d: dict, device=None) -> SceneParams:
+    dev = resolve_device(device)
+    return SceneParams(shape_id=_t(d, "shape_id", dev, torch.int64),
+                       scale=_t(d, "scale", dev), mass=_t(d, "mass", dev),
+                       inertia=_t(d, "inertia", dev), friction=_t(d, "friction", dev))
+
+
+def static_env_from_numpy(d: dict, device=None) -> StaticEnv:
+    dev = resolve_device(device)
+    return StaticEnv(center=_t(d, "center", dev), half=_t(d, "half", dev),
+                     quat=_t(d, "quat", dev), vel=_t(d, "vel", dev),
+                     friction=_t(d, "friction", dev),
+                     enabled=_t(d, "enabled", dev, torch.bool),
+                     imp_budget=_t(d, "imp_budget", dev),
+                     grip=_t(d, "grip", dev, torch.bool))

@@ -1,0 +1,103 @@
+"""Pile-drop environment (``catgrasp_tpu/sim/env_pile.py`` in PyTorch).
+
+``reset`` spawns a randomized column of category objects above the bin,
+``settle`` steps physics until the scene is stable and culls out-of-bin
+bodies.  Randomness comes from a ``torch.Generator`` in place of a
+``jax.random`` key.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..core import transforms as tf
+from . import engine
+from .types import SceneParams, SceneState, ShapeLib
+
+
+@dataclass(frozen=True)
+class PileConfig:
+    max_bodies: int = 10
+    scale_range: tuple = (0.75, 1.25)
+    bin_inner: tuple = (0.3, 0.3, 0.12)
+    drop_height: float = 0.06
+    drop_spacing: float = 0.035
+    dt: float = engine.DT
+    settle_chunk: int = 50  # steps per stability check
+    settle_max_chunks: int = 10
+    stable_motion: float = 5e-4  # max per-chunk body motion to call it stable
+
+
+def reset(generator: torch.Generator, lib: ShapeLib, cfg: PileConfig,
+          n_objects: int | None = None):
+    """One scene: (state, params) on the library's device.
+
+    Objects get random shapes, scales, orientations and staggered drop
+    heights in a jittered column over the bin center."""
+    N = cfg.max_bodies
+    dev = lib.device
+    g = generator
+
+    def draw(fn, *args):
+        return fn(*args, generator=g, device=g.device).to(dev)
+
+    shape_id = draw(torch.randint, 0, lib.num_shapes, (N,))
+    lo, hi = cfg.scale_range
+    scale = lo + (hi - lo) * draw(torch.rand, (N,))
+    params = SceneParams.create(lib, shape_id, scale)
+
+    if n_objects is None:
+        n_objects = int(draw(torch.randint, 1, N + 1, (1,)))
+    active = torch.arange(N, device=dev) < n_objects
+
+    xy = -0.06 + 0.12 * draw(torch.rand, (N, 2))
+    z = cfg.drop_height + torch.arange(N, device=dev, dtype=torch.float32) * cfg.drop_spacing
+    pos = torch.cat([xy, z[:, None]], dim=-1)
+    quat = tf.quat_normalize(draw(torch.randn, (N, 4)))
+
+    state = SceneState(
+        pos=pos, quat=quat,
+        linvel=torch.zeros((N, 3), device=dev), angvel=torch.zeros((N, 3), device=dev),
+        active=active,
+    )
+    return state, params
+
+
+def _cull_out_of_bin(state: SceneState, cfg: PileConfig) -> SceneState:
+    """Deactivate bodies that escaped the bin."""
+    ix, iy, _ = cfg.bin_inner
+    p = state.pos
+    inside = ((torch.abs(p[:, 0]) < ix / 2 + 0.05)
+              & (torch.abs(p[:, 1]) < iy / 2 + 0.05)
+              & (p[:, 2] > -0.05)
+              & (p[:, 2] < 0.5))
+    return state.replace(active=state.active & inside)
+
+
+def step(state: SceneState, params: SceneParams, lib: ShapeLib,
+         env: engine.StaticEnv, cfg: PileConfig) -> SceneState:
+    """One env step: one physics step plus out-of-bin culling."""
+    return _cull_out_of_bin(engine.step(state, params, lib, env, dt=cfg.dt), cfg)
+
+
+def settle(state: SceneState, params: SceneParams, lib: ShapeLib,
+           env: engine.StaticEnv, cfg: PileConfig):
+    """Step in chunks until the max body motion per chunk falls below the
+    threshold, with an iteration cap; returns (state, n_chunks_used)."""
+    n = 0
+    while n < cfg.settle_max_chunks:
+        prev = state
+        state = _cull_out_of_bin(
+            engine.rollout(state, params, lib, env, cfg.settle_chunk, dt=cfg.dt), cfg)
+        n += 1
+        if float(engine.max_body_motion(prev, state)) < cfg.stable_motion:
+            break
+    return state, n
+
+
+def settle_fixed(state: SceneState, params: SceneParams, lib: ShapeLib,
+                 env: engine.StaticEnv, cfg: PileConfig, n_steps: int) -> SceneState:
+    """Fixed-step settle: no data-dependent trip count."""
+    st = engine.rollout(state, params, lib, env, n_steps, dt=cfg.dt)
+    return _cull_out_of_bin(st, cfg)

@@ -1,0 +1,116 @@
+"""The port stands alone: no JAX, no flax, nothing of ``catgrasp_tpu``;
+GPU by default, never a quiet fall back to the CPU.  This file imports no
+JAX either, so it also runs on a GPU machine without it
+(``python -m pytest --noconftest tests/test_torch_isolation.py``)."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from catgrasp_tpu_torch import convert
+from catgrasp_tpu_torch.geom import csg, primitives
+from catgrasp_tpu_torch.ops import collision, render_march
+from catgrasp_tpu_torch.pipelines import run_grasp_simulation as rgs
+from catgrasp_tpu_torch.sim import engine
+from catgrasp_tpu_torch.sim.types import SceneState, build_shape_lib
+
+torch.set_num_threads(2)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import catgrasp_tpu_torch
+for m in pkgutil.walk_packages(catgrasp_tpu_torch.__path__, "catgrasp_tpu_torch."):
+    importlib.import_module(m.name)
+import chip_smoke
+names = {"jax", "flax", "catgrasp_tpu"}
+bad = sorted(n for n in sys.modules
+             if n in names or any(n.startswith(p + ".") for p in names))
+print("\\n".join(bad))
+print("modules", len([n for n in sys.modules if n.startswith("catgrasp_tpu_torch")]))
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    lines = r.stdout.strip().splitlines()
+    assert lines[-1].startswith("modules") and int(lines[-1].split()[1]) >= 20
+    assert lines[:-1] == [], f"imported: {lines[:-1]}"
+
+
+def test_entry_points_raise_without_a_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mesh = primitives.make_instance("nut", "test", 0)
+    calls = [
+        lambda: rgs.setup_scene("nut", n_objects=2, render_hw=(8, 8)),
+        lambda: build_shape_lib([mesh], [csg.make_csg_instance("nut", "test", 0)], n_surf=8),
+        lambda: engine.StaticEnv.open_bin(),
+        lambda: engine.StaticEnv.boxes([[0, 0, 0]], [[1, 1, 1]]),
+        lambda: SceneState.create(3),
+        lambda: convert.scene_state_from_numpy(
+            {"pos": np.zeros((1, 3)), "quat": np.eye(4)[:1], "linvel": np.zeros((1, 3)),
+             "angvel": np.zeros((1, 3)), "active": np.ones(1, bool)}),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    # the same calls run when the caller asks for the CPU
+    assert rgs.setup_scene("nut", n_objects=2, render_hw=(8, 8),
+                           device="cpu").lib.device.type == "cpu"
+
+
+def test_kernel_wrappers_launch_nothing_for_cpu_tensors():
+    lib = build_shape_lib([primitives.make_instance("nut", "test", 0)],
+                          [csg.make_csg_instance("nut", "test", 0)], n_surf=8, device="cpu")
+    from catgrasp_tpu_torch.sim.types import SceneParams
+    params = SceneParams.create(lib, [0])
+    state = SceneState.create(1, device="cpu")
+    state.active[:] = True
+    d = torch.tensor([[0.0, 0.0, -1.0]])
+    n0 = (collision.box_hits.launches, render_march.march_csg.launches)
+    t = render_march.march_csg(lib, state, params, torch.tensor([0.008, 0.0, 0.5]), d,
+                               torch.tensor([3.0]))
+    assert abs(float(t[0]) - (0.5 - 0.00375)) < 1e-3  # the nut's top face, off the hole
+    collision.box_hits(torch.eye(4)[None], torch.zeros((1, 3)), torch.ones(1, dtype=torch.bool),
+                       ((((0.0, 0.0, 0.0)), (1.0, 1.0, 1.0)),), (0.0,), 5e-4)
+    assert (collision.box_hits.launches, render_march.march_csg.launches) == n0
+
+
+def test_cuda_tensors_launch_the_kernels(monkeypatch):
+    """On CUDA tensors both wrappers build and launch their kernels (each
+    launch counted); the plain versions are never taken there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from catgrasp_tpu_torch.ops import build
+
+    def no_plain(*a, **k):
+        raise AssertionError("plain version taken for CUDA tensors")
+
+    monkeypatch.setattr(collision, "box_hits_plain", no_plain)
+    monkeypatch.setattr(render_march, "march_csg_plain", no_plain)
+    build.build_all()
+    dev = torch.device("cuda")
+    n0 = (collision.box_hits.launches, render_march.march_csg.launches)
+    hit = collision.box_hits(torch.eye(4, device=dev)[None], torch.zeros((1, 3), device=dev),
+                             torch.ones(1, dtype=torch.bool, device=dev),
+                             (((0.0, 0.0, 0.0), (1.0, 1.0, 1.0)),), (0.0,), 5e-4)
+    lib = build_shape_lib([primitives.make_instance("nut", "test", 0)],
+                          [csg.make_csg_instance("nut", "test", 0)], n_surf=8, device=dev)
+    from catgrasp_tpu_torch.sim.types import SceneParams
+    state = SceneState.create(1, device=dev)
+    state.active[:] = True
+    t = render_march.march_csg(lib, state, SceneParams.create(lib, [0]),
+                               torch.tensor([0.008, 0.0, 0.5], device=dev),
+                               torch.tensor([[0.0, 0.0, -1.0]], device=dev),
+                               torch.tensor([3.0], device=dev))
+    torch.cuda.synchronize()
+    assert bool(hit[0, 0]) and abs(float(t[0]) - (0.5 - 0.00375)) < 1e-3
+    assert (collision.box_hits.launches, render_march.march_csg.launches) == (n0[0] + 1,
+                                                                              n0[1] + 1)
