@@ -14,7 +14,7 @@ from ..core import transforms as tf
 from ..geom import csg as csglib
 from ..ops import render_march as rm
 from ..sim.engine import StaticEnv
-from ..sim.types import SceneParams, SceneState, ShapeLib
+from ..sim.types import SceneParams, SceneState, ShapeLib, index_scenes
 
 HIT_EPS = 2e-4
 
@@ -124,3 +124,21 @@ def shade(lib: ShapeLib, state: SceneState, params: SceneParams,
         "normal": normal.reshape(shp + (3,)),
         "xyz": xyz_cam.reshape(shp + (3,)),
     }
+
+
+def render_batch(lib: ShapeLib, states: SceneState, params: SceneParams, K, cam_in_world,
+                 H: int, W: int, env: StaticEnv | None = None,
+                 scene_chunk: int | None = None) -> dict:
+    """Render a scene batch (leading axis of states/params) -> dict of
+    (B, H, W[, C]) images.
+
+    Scenes are rendered one after another (one march launch a scene), so peak
+    memory is one frame's whatever the batch.  ``scene_chunk`` keeps the JAX
+    signature, where it bounds memory by running sub-batches in sequence; it
+    must divide the batch and changes nothing else here."""
+    B = states.pos.shape[0]
+    if scene_chunk is not None and scene_chunk < B and B % scene_chunk:
+        raise ValueError(f"scene_chunk {scene_chunk} must divide batch {B}")
+    outs = [render(lib, index_scenes(states, b), index_scenes(params, b), K, cam_in_world,
+                   H, W, env=env) for b in range(B)]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

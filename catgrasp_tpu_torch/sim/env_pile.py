@@ -3,7 +3,8 @@
 ``reset`` spawns a randomized column of category objects above the bin,
 ``settle`` steps physics until the scene is stable and culls out-of-bin
 bodies.  Randomness comes from a ``torch.Generator`` in place of a
-``jax.random`` key.
+``jax.random`` key.  ``reset_batch`` and ``make_pile_batch`` do the same for
+a batch of scenes with a leading axis, where the JAX package uses ``vmap``.
 """
 from __future__ import annotations
 
@@ -29,12 +30,11 @@ class PileConfig:
     stable_motion: float = 5e-4  # max per-chunk body motion to call it stable
 
 
-def reset(generator: torch.Generator, lib: ShapeLib, cfg: PileConfig,
-          n_objects: int | None = None):
-    """One scene: (state, params) on the library's device.
-
-    Objects get random shapes, scales, orientations and staggered drop
-    heights in a jittered column over the bin center."""
+def _draw_pile(generator: torch.Generator, lib: ShapeLib, cfg: PileConfig,
+               lead: tuple, n_objects):
+    """(state, params) with leading axes ``lead`` ahead of the body axis:
+    ``()`` for one scene, ``(B,)`` for a batch.  Every quantity is drawn for
+    all scenes at once from the one generator."""
     N = cfg.max_bodies
     dev = lib.device
     g = generator
@@ -42,36 +42,54 @@ def reset(generator: torch.Generator, lib: ShapeLib, cfg: PileConfig,
     def draw(fn, *args):
         return fn(*args, generator=g, device=g.device).to(dev)
 
-    shape_id = draw(torch.randint, 0, lib.num_shapes, (N,))
+    shape_id = draw(torch.randint, 0, lib.num_shapes, (*lead, N))
     lo, hi = cfg.scale_range
-    scale = lo + (hi - lo) * draw(torch.rand, (N,))
+    scale = lo + (hi - lo) * draw(torch.rand, (*lead, N))
     params = SceneParams.create(lib, shape_id, scale)
 
     if n_objects is None:
-        n_objects = int(draw(torch.randint, 1, N + 1, (1,)))
+        n_objects = draw(torch.randint, 1, N + 1, (*lead, 1))
     active = torch.arange(N, device=dev) < n_objects
 
-    xy = -0.06 + 0.12 * draw(torch.rand, (N, 2))
+    xy = -0.06 + 0.12 * draw(torch.rand, (*lead, N, 2))
     z = cfg.drop_height + torch.arange(N, device=dev, dtype=torch.float32) * cfg.drop_spacing
-    pos = torch.cat([xy, z[:, None]], dim=-1)
-    quat = tf.quat_normalize(draw(torch.randn, (N, 4)))
+    pos = torch.cat([xy, z[:, None].expand(*lead, N, 1)], dim=-1)
+    quat = tf.quat_normalize(draw(torch.randn, (*lead, N, 4)))
 
     state = SceneState(
         pos=pos, quat=quat,
-        linvel=torch.zeros((N, 3), device=dev), angvel=torch.zeros((N, 3), device=dev),
-        active=active,
+        linvel=torch.zeros((*lead, N, 3), device=dev),
+        angvel=torch.zeros((*lead, N, 3), device=dev),
+        active=active.expand(*lead, N).contiguous(),
     )
     return state, params
+
+
+def reset(generator: torch.Generator, lib: ShapeLib, cfg: PileConfig,
+          n_objects: int | None = None):
+    """One scene: (state, params) on the library's device.
+
+    Objects get random shapes, scales, orientations and staggered drop
+    heights in a jittered column over the bin center."""
+    return _draw_pile(generator, lib, cfg, (), n_objects)
+
+
+def reset_batch(generator: torch.Generator, lib: ShapeLib, cfg: PileConfig, batch: int,
+                n_objects: int | None = None):
+    """``batch`` scenes, (B, N, ...): the counterpart of ``vmap(reset)``.  The
+    same distributions as ``reset``, scene by scene (``n_objects`` uniform in
+    1..N for each scene unless given), from one explicit generator."""
+    return _draw_pile(generator, lib, cfg, (batch,), n_objects)
 
 
 def _cull_out_of_bin(state: SceneState, cfg: PileConfig) -> SceneState:
     """Deactivate bodies that escaped the bin."""
     ix, iy, _ = cfg.bin_inner
     p = state.pos
-    inside = ((torch.abs(p[:, 0]) < ix / 2 + 0.05)
-              & (torch.abs(p[:, 1]) < iy / 2 + 0.05)
-              & (p[:, 2] > -0.05)
-              & (p[:, 2] < 0.5))
+    inside = ((torch.abs(p[..., 0]) < ix / 2 + 0.05)
+              & (torch.abs(p[..., 1]) < iy / 2 + 0.05)
+              & (p[..., 2] > -0.05)
+              & (p[..., 2] < 0.5))
     return state.replace(active=state.active & inside)
 
 
@@ -101,3 +119,14 @@ def settle_fixed(state: SceneState, params: SceneParams, lib: ShapeLib,
     """Fixed-step settle: no data-dependent trip count."""
     st = engine.rollout(state, params, lib, env, n_steps, dt=cfg.dt)
     return _cull_out_of_bin(st, cfg)
+
+
+def make_pile_batch(generator: torch.Generator, lib: ShapeLib, cfg: PileConfig, batch: int,
+                    settle_steps: int = 400):
+    """B settled pile scenes in one call: batched reset + fixed settle in the
+    engine (the production settle; ``ops.fused_rollout`` is the throughput
+    path).  Returns (states, params, env)."""
+    env = engine.StaticEnv.open_bin(cfg.bin_inner, device=lib.device)
+    states, params = reset_batch(generator, lib, cfg, batch)
+    st = engine.rollout_batch(states, params, lib, env, settle_steps, dt=cfg.dt)
+    return _cull_out_of_bin(st, cfg), params, env

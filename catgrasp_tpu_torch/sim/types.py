@@ -6,7 +6,7 @@ tensors that all live on one device.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 
 import numpy as np
 import torch
@@ -93,13 +93,14 @@ def build_shape_lib(meshes: list[TriMesh], csg_shapes: list[csglib.CsgShape] | N
 
 @dataclass
 class SceneParams:
-    """Per-body constants of one scene (N = max bodies, fixed)."""
+    """Per-body constants of one scene (N = max bodies, fixed), or of a
+    batch of scenes: every field may carry leading scene axes (B, N, ...)."""
 
-    shape_id: torch.Tensor  # (N,) int64
-    scale: torch.Tensor  # (N,) float
-    mass: torch.Tensor  # (N,)
-    inertia: torch.Tensor  # (N, 3) diagonal, body frame
-    friction: torch.Tensor  # (N,)
+    shape_id: torch.Tensor  # (..., N) int64
+    scale: torch.Tensor  # (..., N) float
+    mass: torch.Tensor  # (..., N)
+    inertia: torch.Tensor  # (..., N, 3) diagonal, body frame
+    friction: torch.Tensor  # (..., N)
 
     def replace(self, **kw) -> "SceneParams":
         return replace(self, **kw)
@@ -110,31 +111,32 @@ class SceneParams:
         # friction default = the reference's pile-object lateralFriction 0.9
         dev = lib.device
         shape_id = torch.as_tensor(shape_id, device=dev).long()
-        n = shape_id.shape[0]
-        scale = (torch.ones(n, device=dev) if scale is None
+        scale = (torch.ones(shape_id.shape, device=dev) if scale is None
                  else torch.as_tensor(scale, dtype=torch.float32, device=dev))
         s2 = scale * scale
         vol = lib.volume[shape_id] * (s2 * scale)
         mass = vol * density
-        inertia = lib.inertia_unit[shape_id] * (s2 * s2 * scale)[:, None] * density
+        inertia = lib.inertia_unit[shape_id] * (s2 * s2 * scale)[..., None] * density
         return SceneParams(
             shape_id=shape_id,
             scale=scale,
             mass=mass,
             inertia=inertia,
-            friction=torch.full((n,), friction, device=dev),
+            friction=torch.full(shape_id.shape, friction, device=dev),
         )
 
 
 @dataclass
 class SceneState:
-    """Dynamic state of one scene."""
+    """Dynamic state of one scene, or of a batch of scenes: every field may
+    carry leading scene axes (B, N, ...), which the JAX package gets from
+    ``vmap``."""
 
-    pos: torch.Tensor  # (N, 3)
-    quat: torch.Tensor  # (N, 4) wxyz
-    linvel: torch.Tensor  # (N, 3)
-    angvel: torch.Tensor  # (N, 3) world frame
-    active: torch.Tensor  # (N,) bool — inactive bodies are ignored entirely
+    pos: torch.Tensor  # (..., N, 3)
+    quat: torch.Tensor  # (..., N, 4) wxyz
+    linvel: torch.Tensor  # (..., N, 3)
+    angvel: torch.Tensor  # (..., N, 3) world frame
+    active: torch.Tensor  # (..., N) bool — inactive bodies are ignored entirely
 
     def replace(self, **kw) -> "SceneState":
         return replace(self, **kw)
@@ -151,3 +153,17 @@ class SceneState:
             angvel=torch.zeros((n, 3), device=dev),
             active=torch.zeros((n,), dtype=torch.bool, device=dev),
         )
+
+
+def stack_scenes(scenes: list):
+    """Stack one-scene ``SceneState``s (or ``SceneParams``) into a batch with
+    a leading scene axis."""
+    cls = type(scenes[0])
+    return cls(**{f.name: torch.stack([getattr(s, f.name) for s in scenes])
+                  for f in fields(cls)})
+
+
+def index_scenes(batch, idx):
+    """Scene ``idx`` (an int, a slice or an index tensor) of a batched
+    ``SceneState`` or ``SceneParams``."""
+    return type(batch)(**{f.name: getattr(batch, f.name)[idx] for f in fields(batch)})

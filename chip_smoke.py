@@ -6,7 +6,7 @@
 Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build both CUDA kernels with ``nvcc`` from ``catgrasp_tpu_torch/csrc``;
+2. build the three CUDA kernels with ``nvcc`` from ``catgrasp_tpu_torch/csrc``;
 3. kernel K1 ``box_hits`` against its plain PyTorch version at the grasp
    filter's shapes (254,848 poses; 512 points x 3 open-gripper boxes and
    4,096 points x the closing box; 7 offsets): agreement, times, bound;
@@ -18,7 +18,18 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    scene at 384x512: agreement, times, bound;
 6. a device-time profile (torch.profiler) of 20 settle steps and of one
    attempt, by kernel;
-7. a ``kernels`` JSON line, the card line, then ``{"ok": true, ...}``.
+7. kernel K3 ``rollout_fused`` against its plain version at the throughput
+   entry point's shapes (10 bodies x 32 points, 5 bin boxes) on 128 scenes:
+   1, 5 and 50 steps, and two kernel runs bit for bit;
+8. the second path, once, at full width: ``catgrasp_tpu_torch.bench`` (1,024
+   scenes x 5 calls of 50 steps through K3 and once through the eager engine;
+   the collision gate through K1; the IK gate; 8 x 9 frames through K2) —
+   again with every launch count set to 0 just before and read just after;
+   then K1 and K2 against their plain versions at that path's own shapes:
+   the hit matrix and two of the frames it computed, on its own inputs;
+9. K3's times on the 1,024-scene, 50-step call (kernel, wrapper, plain
+   version, eager engine) and its bound from that call's own contacts;
+10. a ``kernels`` JSON line, the card line, then ``{"ok": true, ...}``.
 
 It imports nothing of the JAX package.  Without a GPU it exits non-zero
 before printing any result.
@@ -133,6 +144,43 @@ def box_hits_work(collision, t_inv, cloud, mask, boxes, offsets, margin):
     return ops
 
 
+def measure_box_hits(name, collision, t_inv, cloud, mask, boxes, offsets, margin, hit_k=None):
+    """Hold K1 against its plain version on these inputs (``hit_k``: a result
+    the kernel already gave for them), time both and work out the bound."""
+    P, C = t_inv.shape[0], cloud.shape[0]
+    if hit_k is None:
+        hit_k = collision.box_hits(t_inv, cloud, mask, boxes, offsets, margin)
+    hit_p = collision.box_hits_plain(t_inv, cloud, mask, boxes, offsets, margin)
+    torch.cuda.synchronize()
+    if hit_k.shape != (P, len(offsets)) or hit_k.dtype != torch.bool:
+        fail(f"box_hits {name}: shape {tuple(hit_k.shape)} dtype {hit_k.dtype}")
+    n_diff = int((hit_k != hit_p).sum())
+    frac_hit = float(hit_p.float().mean())
+    ms, wrapper_ms, how = timed(
+        lambda: collision.box_hits(t_inv, cloud, mask, boxes, offsets, margin),
+        "box_hits_kernel")
+    plain_ms = cuda_ms(lambda: collision.box_hits_plain(t_inv, cloud, mask, boxes, offsets,
+                                                        margin), 3)
+    nbytes = P * 64 + C * 13 + P * len(offsets)
+    ops = box_hits_work(collision, t_inv, cloud, mask, boxes, offsets, margin)
+    bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
+    print(f"K1 box_hits [{name}] P={P} C={C} K={len(boxes)} A={len(offsets)}: "
+          f"{n_diff} of {hit_k.numel()} (pose, offset) entries differ from the plain "
+          f"version (hit rate {frac_hit:.4f}); kernel {ms:.4f} ms ({how}), wrapper "
+          f"{wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
+          f"({ops:.3e} ops, {nbytes:.3e} bytes)", flush=True)
+    if n_diff > 1e-5 * hit_k.numel():
+        fail(f"box_hits {name}: {n_diff} entries differ (limit 1e-5 of entries)")
+    return {"n_diff": n_diff, "n_entries": hit_k.numel(), "ms": ms, "wrapper_ms": wrapper_ms,
+            "timing": how, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops}
+
+
+def bound_of(ops: float, nbytes: float):
+    """(bound ms, what bounds it) from the operations and bytes of a call."""
+    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
 def check_box_hits(dev):
     from catgrasp_tpu_torch.grasp import filter as gfilter
     from catgrasp_tpu_torch.ops import collision
@@ -152,42 +200,13 @@ def check_box_hits(dev):
                            rng.uniform(-0.05, -0.02, (4096, 1))], axis=1)
     cases = [("open", ball, gfilter._static_open_boxes(spec)),
              ("enclosed", slab, gfilter._static_enclosed_box(spec))]
-    res = {"n_diff": 0, "n_entries": 0, "ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0,
-           "bytes": 0.0, "ops": 0.0}
+    res = {}
     for name, pts, boxes in cases:
-        C = len(pts)
         cloud = torch.from_numpy(pts.astype(np.float32)).to(dev)
-        mask = torch.from_numpy(rng.uniform(size=C) > 0.05).to(dev)
-        hit_k = collision.box_hits(t_inv, cloud, mask, boxes, offsets, margin)
-        hit_p = collision.box_hits_plain(t_inv, cloud, mask, boxes, offsets, margin)
-        torch.cuda.synchronize()
-        if hit_k.shape != (N_POSES, len(offsets)) or hit_k.dtype != torch.bool:
-            fail(f"box_hits {name}: shape {tuple(hit_k.shape)} dtype {hit_k.dtype}")
-        n_diff = int((hit_k != hit_p).sum())
-        frac_hit = float(hit_p.float().mean())
-        ms, wrapper_ms, how = timed(
-            lambda: collision.box_hits(t_inv, cloud, mask, boxes, offsets, margin),
-            "box_hits_kernel")
-        plain_ms = cuda_ms(lambda: collision.box_hits_plain(t_inv, cloud, mask, boxes, offsets,
-                                                            margin), 3)
-        nbytes = N_POSES * 64 + C * 13 + N_POSES * len(offsets)
-        ops = box_hits_work(collision, t_inv, cloud, mask, boxes, offsets, margin)
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-        print(f"K1 box_hits [{name}] P={N_POSES} C={C} K={len(boxes)} A={len(offsets)}: "
-              f"{n_diff} of {hit_k.numel()} (pose, offset) entries differ from the plain "
-              f"version (hit rate {frac_hit:.4f}); kernel {ms:.4f} ms ({how}), wrapper "
-              f"{wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
-              f"({ops:.3e} ops, {nbytes:.3e} bytes)", flush=True)
-        if n_diff > 1e-5 * hit_k.numel():
-            fail(f"box_hits {name}: {n_diff} entries differ (limit 1e-5 of entries)")
-        res["n_diff"] += n_diff
-        res["n_entries"] += hit_k.numel()
-        res["ms"] += ms
-        res["wrapper_ms"] += wrapper_ms
-        res["timing"] = how
-        res["plain_ms"] += plain_ms
-        res["bytes"] += nbytes
-        res["ops"] += ops
+        mask = torch.from_numpy(rng.uniform(size=len(pts)) > 0.05).to(dev)
+        one = measure_box_hits(name, collision, t_inv, cloud, mask, boxes, offsets, margin)
+        for k, v in one.items():  # the two clouds of a depth pair add up
+            res[k] = v if k == "timing" else res.get(k, 0) + v
     return res
 
 
@@ -235,20 +254,20 @@ def march_work(rm, lib, state, params, o_w, d_w, tmax, env, n_steps, hit_eps):
     return float((evals.cpu().numpy() * per_ray).sum())
 
 
-def check_march(dev, scene, state, params):
+def check_march(label, lib, state, params, K, cam, H, W, env, frame=None):
+    """Hold K2 against its plain version on this scene, time both and work
+    out the bound.  ``frame``: the images a path rendered of this scene
+    through the kernel; they are what is compared where given."""
     from catgrasp_tpu_torch.ops import render_march as rm
     from catgrasp_tpu_torch.render import raymarch
 
-    cam = torch.as_tensor(scene.cam, device=dev)
-    env = scene.env_bin
-    o_w, d_w, d_cam, tmax = raymarch.camera_rays(scene.K, cam, scene.H, scene.W)
+    o_w, d_w, d_cam, tmax = raymarch.camera_rays(K, cam, H, W)
     kw = dict(env=env, n_steps=64, hit_eps=raymarch.HIT_EPS)
-    t_k = rm.march_csg(scene.lib, state, params, o_w, d_w, tmax, **kw)
-    t_p = rm.march_csg_plain(scene.lib, state, params, o_w, d_w, tmax, **kw)
-    out_k = raymarch.shade(scene.lib, state, params, cam, scene.H, scene.W, env, d_w, d_cam,
-                           tmax, t_k)
-    out_p = raymarch.shade(scene.lib, state, params, cam, scene.H, scene.W, env, d_w, d_cam,
-                           tmax, t_p)
+    t_k = rm.march_csg(lib, state, params, o_w, d_w, tmax, **kw)
+    t_p = rm.march_csg_plain(lib, state, params, o_w, d_w, tmax, **kw)
+    out_k = frame if frame is not None else raymarch.shade(lib, state, params, cam, H, W, env,
+                                                           d_w, d_cam, tmax, t_k)
+    out_p = raymarch.shade(lib, state, params, cam, H, W, env, d_w, d_cam, tmax, t_p)
     torch.cuda.synchronize()
     if not torch.isfinite(t_k).all():
         fail("march_csg returned non-finite t")
@@ -259,25 +278,252 @@ def check_march(dev, scene, state, params):
     visible_k = set(seg_k.unique().tolist())
     visible_p = set(seg_p.unique().tolist())
     ms, wrapper_ms, how = timed(
-        lambda: rm.march_csg(scene.lib, state, params, o_w, d_w, tmax, **kw), "march_csg_kernel")
-    plain_ms = cuda_ms(lambda: rm.march_csg_plain(scene.lib, state, params, o_w, d_w, tmax,
-                                                  **kw), 3)
+        lambda: rm.march_csg(lib, state, params, o_w, d_w, tmax, **kw), "march_csg_kernel")
+    plain_ms = cuda_ms(lambda: rm.march_csg_plain(lib, state, params, o_w, d_w, tmax, **kw), 3)
     P = d_w.shape[0]
     nbytes = P * (12 + 4 + 4)
-    ops = march_work(rm, scene.lib, state, params, o_w, d_w, tmax, env, 64, raymarch.HIT_EPS)
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-    print(f"K2 march_csg {scene.H}x{scene.W} ({P} rays), {state.pos.shape[0]} bodies, "
+    ops = march_work(rm, lib, state, params, o_w, d_w, tmax, env, 64, raymarch.HIT_EPS)
+    bound, bound_by = bound_of(ops, nbytes)
+    print(f"K2 march_csg [{label}] {H}x{W} ({P} rays), {state.pos.shape[0]} bodies "
+          f"({int(state.active.sum())} active), "
           f"{env.center.shape[0]} env boxes: seg agrees on {agree:.6f} of pixels, depth max "
           f"|err| {err:.3e} m where it agrees, bodies seen {sorted(visible_k)} vs "
           f"{sorted(visible_p)}; kernel {ms:.4f} ms ({how}), wrapper {wrapper_ms:.4f} ms, "
           f"plain {plain_ms:.3f} ms, bound "
           f"{bound:.4f} ms ({ops:.3e} ops, {nbytes:.3e} bytes)", flush=True)
     if agree <= 0.995 or err > 2e-3 or visible_k != visible_p:
-        fail("march_csg disagrees with its plain version")
+        fail(f"march_csg [{label}] disagrees with its plain version")
     return {"max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms, "timing": how,
-            "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "operations" if ops / F32_OPS_PER_S > nbytes / HBM_BYTES_PER_S
-            else "bytes"}
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "shapes": f"{H}x{W} rays, {state.pos.shape[0]} bodies, {env.center.shape[0]} env "
+                      f"boxes, 64 steps"}
+
+
+# --------------------------------------------------------------------------
+# K3 rollout_fused
+# --------------------------------------------------------------------------
+
+# Operations of K3 as csrc/fused_rollout.cu writes them (a square root, a
+# division or a reciprocal square root counted as one).  A slot: its offset,
+# its primitive's SDF with normal, and the union/subtract combine.
+_K3_SLOT_OPS = {1: 42 + 9, 2: 38 + 9, 3: 95 + 9}
+_K3_BODY_STEP = 160   # a body a step: rotation, world inverse inertia, damping, integration
+_K3_POINT_STEP = 21   # a point a step: world position and lever arm
+_K3_BODY_PAIR = 33    # point vs body: into the body's frame, normalise, scale, test
+_K3_ENV_PAIR = 39     # point vs env box: into its frame, box distance, test
+_K3_CONTACT = {"body": 86, "env": 80}   # a pair in contact: world normal, K_n, rounding
+_K3_CONTACT_ITER = {"body": 191, "env": 119}  # a pair in contact, one Jacobi iteration
+_K3_BODY_ITER = 60    # a body, one iteration: apply the summed impulses
+
+
+def bench_scene(dev, batch):
+    """The throughput entry point's env-steps inputs: its shapes, bin and
+    reset, from its seed."""
+    from catgrasp_tpu_torch import bench
+    from catgrasp_tpu_torch.sim import engine, env_pile
+
+    cfg = env_pile.PileConfig(max_bodies=10)
+    lib = bench.pile_lib(bench.ENV_SHAPES, 32, dev)
+    env = engine.StaticEnv.open_bin(cfg.bin_inner, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    states, params = env_pile.reset_batch(gen, lib, cfg, batch)
+    return cfg, lib, env, states, params
+
+
+def rollout_work(pfr, lib, env, states, params, n_steps, n_iter, dt):
+    """(operations, bytes) that ``n_steps`` of this batch need: per step the
+    point-collider pairs of active bodies with the slots each really
+    evaluates, and per iteration the pairs in contact (counted on the
+    kernel's own trajectory, one step a launch)."""
+    B, N = states.pos.shape[:2]
+    P, M = lib.surf_pts.shape[1], env.center.shape[0]
+    types = lib.csg.types[params.shape_id]  # (B, N, S)
+    slot_ops = torch.zeros_like(types, dtype=torch.float64)
+    for code, ops in _K3_SLOT_OPS.items():
+        slot_ops += (types == code) * float(ops)
+    act = states.active.double()
+    n_act = act.sum(dim=1)  # (B,)
+    body_ops = (slot_ops.sum(dim=-1) + _K3_BODY_PAIR) * act  # a point against body j
+    # every point of every other active body evaluates body j
+    pair_ops = float((body_ops.sum(dim=1) * (n_act - 1).clamp(min=0)).sum()) * P
+    fixed = (float(n_act.sum()) * (_K3_BODY_STEP + n_iter * _K3_BODY_ITER)
+             + float(n_act.sum()) * P * (_K3_POINT_STEP + M * _K3_ENV_PAIR) + pair_ops)
+    c = pfr.prepare(states, params, lib, env)
+    ops, n_body, n_env = fixed * n_steps, 0, 0
+    st = states
+    for _ in range(n_steps):
+        slabs, _ = pfr.narrowphase(pfr.Frame(st.pos, st.quat, c), c)
+        nb = sum(int((s[0] < 0).sum()) for s in slabs[:N])
+        ne = sum(int((s[0] < 0).sum()) for s in slabs[N:])
+        n_body, n_env = n_body + nb, n_env + ne
+        ops += nb * (_K3_CONTACT["body"] + n_iter * _K3_CONTACT_ITER["body"]) \
+            + ne * (_K3_CONTACT["env"] + n_iter * _K3_CONTACT_ITER["env"])
+        st = pfr.rollout_fused(st, params, lib, env, 1, dt=dt)
+    S = types.shape[-1]
+    nbytes = B * N * 4 * (13 + 13 + 8 + 3 * P + 2 * S + 6 * S) + M * 19 * 4
+    return ops, nbytes, n_body / n_steps / B, n_env / n_steps / B
+
+
+_STATE_FIELDS = ("pos", "quat", "linvel", "angvel")
+
+
+def _state_errors(a, b):
+    """Per active body: max |difference| of pos, quat, linvel, angvel."""
+    act = a.active
+    return {f: (getattr(a, f) - getattr(b, f)).abs().amax(dim=-1)[act] for f in _STATE_FIELDS}
+
+
+def check_rollout(dev):
+    from catgrasp_tpu_torch.ops import fused_rollout as pfr
+    from catgrasp_tpu_torch.sim import engine
+    from catgrasp_tpu_torch.sim.types import index_scenes
+
+    cfg, lib, env, states, params = bench_scene(dev, 1024)
+    N, P, M = states.pos.shape[1], lib.surf_pts.shape[1], env.center.shape[0]
+    sl = slice(0, 128)
+    st128, par128 = index_scenes(states, sl), index_scenes(params, sl)
+    # the reset drops the piles from 6 cm up: fall 50 steps first, so that the
+    # compared steps are contact steps
+    st128 = pfr.rollout_fused(st128, par128, lib, env, 50, dt=cfg.dt)
+    res = {}
+    for n in (1, 5):
+        k = pfr.rollout_fused(st128, par128, lib, env, n, dt=cfg.dt)
+        p = pfr.rollout_fused_plain(st128, par128, lib, env, n, dt=cfg.dt)
+        torch.cuda.synchronize()
+        if not all(torch.isfinite(getattr(k, f)).all() for f in _STATE_FIELDS):
+            fail(f"rollout_fused returned non-finite state after {n} steps")
+        err = _state_errors(k, p)
+        within = ((err["pos"] < 1e-4) & (err["quat"] < 1e-3) & (err["linvel"] < 1e-2)
+                  & (err["angvel"] < 1e-2))
+        frac = float(within.float().mean())
+        worst = {f: float(e.max()) for f, e in err.items()}
+        moving = float((k.linvel[..., 2].abs() < 0.9 * 9.8 * 50 * cfg.dt)[k.active].float().mean())
+        print(f"K3 rollout_fused vs plain, 128 scenes x {N} bodies x {P} points, {n} step(s): "
+              f"{frac:.5f} of {int(within.numel())} active bodies within 1e-4 m / 1e-3 quat / "
+              f"1e-2 velocities; max |err| {json.dumps(worst)}; {moving:.3f} of bodies slowed "
+              f"by contact", flush=True)
+        if frac < 0.99:
+            fail(f"rollout_fused disagrees with its plain version after {n} steps")
+        res[n] = (frac, worst)
+    k50 = pfr.rollout_fused(st128, par128, lib, env, 50, dt=cfg.dt)
+    k50b = pfr.rollout_fused(st128, par128, lib, env, 50, dt=cfg.dt)
+    p50 = pfr.rollout_fused_plain(st128, par128, lib, env, 50, dt=cfg.dt)
+    torch.cuda.synchronize()
+    same = all(torch.equal(getattr(k50, f), getattr(k50b, f)) for f in _STATE_FIELDS)
+    act = k50.active
+    zk, zp = k50.pos[..., 2][act], p50.pos[..., 2][act]
+    # a body that meets the 1 cm floor at ~2 m/s (the top of a tall column)
+    # passes through it, in the kernel as in the plain version: the kernel is
+    # held to the plain version's set of such bodies, not to an empty one
+    low_k, low_p = zk < -0.02, zp < -0.02
+    mean_k, mean_p = float(zk[~low_k].mean()), float(zp[~low_p].mean())
+    print(f"K3 after 50 more steps: mean z of the bodies in the bin kernel {mean_k:.5f} m, "
+          f"plain {mean_p:.5f} m; bodies below -0.02 m kernel {int(low_k.sum())}, plain "
+          f"{int(low_p.sum())} of {zk.numel()}, the same bodies: {torch.equal(low_k, low_p)}; "
+          f"two kernel runs {'identical' if same else 'DIFFER'} bit for bit", flush=True)
+    if not torch.equal(low_k, low_p) or abs(mean_k - mean_p) > 1e-3 or not same:
+        fail("rollout_fused: 50-step settle (bodies below the floor, mean z within 1 mm) or "
+             "determinism")
+
+    # times and bound on the entry point's own call: 1,024 scenes x 50 steps
+    call = lambda: pfr.rollout_fused(states, params, lib, env, 50, dt=cfg.dt)  # noqa: E731
+    ms, wrapper_ms, how = timed(call, "fused_rollout_kernel")
+    prep_ms = cuda_ms(lambda: pfr.prepare(states, params, lib, env), 10)
+    plain_ms = cuda_ms(lambda: pfr.rollout_fused_plain(states, params, lib, env, 50, dt=cfg.dt), 1)
+    engine_ms = cuda_ms(lambda: engine.rollout_batch(states, params, lib, env, 50, dt=cfg.dt), 1)
+    ops, nbytes, cb, ce = rollout_work(pfr, lib, env, states, params, 50, 4, cfg.dt)
+    bound, bound_by = bound_of(ops, nbytes)
+    print(f"K3 rollout_fused 1024 scenes x {N} bodies x {P} points x {N + M} colliders, 50 "
+          f"steps: kernel {ms:.4f} ms ({how}), wrapper {wrapper_ms:.4f} ms (of which the "
+          f"per-call gathers {prep_ms:.4f} ms), plain {plain_ms:.1f} ms, eager engine "
+          f"rollout_batch {engine_ms:.1f} ms, bound {bound:.4f} ms ({ops:.3e} ops, "
+          f"{nbytes:.3e} bytes; {cb:.2f} body and {ce:.2f} env contacts a scene-step, "
+          f"{float(states.active.float().sum(1).mean()):.2f} active bodies a scene)", flush=True)
+    return {"max_abs_err": res[5][1]["pos"], "within_tol_frac": res[5][0], "ms": ms,
+            "wrapper_ms": wrapper_ms, "prepare_ms": prep_ms, "timing": how,
+            "plain_ms": plain_ms, "engine_ms": engine_ms, "bound_ms": bound,
+            "bound_by": bound_by,
+            "shapes": f"1024 scenes x {N} bodies x {P} points x {N + M} colliders, 4 slots, "
+                      f"50 steps"}
+
+
+# --------------------------------------------------------------------------
+# the second path: the throughput entry point
+# --------------------------------------------------------------------------
+
+
+def bench_path(dev):
+    """``catgrasp_tpu_torch.bench`` once at its own sizes, with every launch
+    count set to 0 just before and read just after."""
+    from catgrasp_tpu_torch import bench
+    from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
+    from catgrasp_tpu_torch.sim.types import index_scenes
+
+    counters = {"box_hits": collision.box_hits, "march_csg": render_march.march_csg,
+                "rollout_fused": fused_rollout.rollout_fused}
+    for fn in counters.values():
+        fn.launches = 0
+    keep = {}
+    t0 = time.perf_counter()
+    record = bench.run(dev, keep=keep)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"bench path ({time.perf_counter() - t0:.2f} s): {json.dumps(record)}", flush=True)
+    print(f"bench path launches: {json.dumps(launches)}", flush=True)
+    if launches != {"box_hits": 9, "march_csg": 72, "rollout_fused": 5}:
+        fail(f"bench path launches {launches}: expected 5 K3 calls (1 warm-up + 4), 9 K1 calls "
+             f"and 9 x 8 K2 frames")
+    rates = [record["value"], *record["extra"].values()]
+    if not all(np.isfinite(r) and r > 0 for r in rates):
+        fail(f"bench path rates not finite and positive: {rates}")
+    first, last = keep["env_first"], keep["env_last"]
+    act = last.active
+    if last.pos.shape != (1024, 10, 3) or not all(
+            torch.isfinite(getattr(last, f)).all() for f in _STATE_FIELDS):
+        fail("bench path: env state has the wrong shape or non-finite values")
+    z_end = last.pos[..., 2][act]
+    inside = z_end > -0.02  # the rest met the floor too fast and passed through it
+    z0, z1 = float(first.pos[..., 2][act].mean()), float(z_end[inside].mean())
+    qn = torch.linalg.vector_norm(last.quat, dim=-1)
+    speed = float(torch.linalg.vector_norm(last.linvel, dim=-1)[act][inside].mean())
+    still = bool(torch.equal(last.pos[~act], first.pos[~act]))
+    print(f"bench path env state after 250 steps: {float(inside.float().mean()):.4f} of "
+          f"{z_end.numel()} active bodies in the bin, their mean z {z0:.4f} -> {z1:.4f} m and "
+          f"mean speed {speed:.4f} m/s, |quat| in [{float(qn.min()):.6f}, "
+          f"{float(qn.max()):.6f}], inactive bodies untouched: {still}", flush=True)
+    if not (float(inside.float().mean()) > 0.97 and 0.0 < z1 < 0.06 and speed < 0.3 and still
+            and float((qn - 1).abs().max()) < 1e-3):
+        fail("bench path: the piles did not settle into the bin")
+    hits, ok, frames = keep["hits"], keep["ik_ok"], keep["frames"]
+    if hits.shape != (131072, 7) or not 0 < int(hits.sum()) < hits.numel():
+        fail("bench path: collision gate output")
+    if ok.shape != (65536,) or not 0 < int(ok.sum()) < ok.numel():
+        fail("bench path: IK gate output")
+    if frames["depth"].shape != (8, 384, 512) or not all(
+            torch.isfinite(v.float()).all() for v in frames.values()) \
+            or not (frames["seg"] >= 0).any():
+        fail("bench path: render output")
+    # K1 and K2 at this path's own shapes: what the path computed, against the
+    # plain versions on the path's inputs
+    k1 = measure_box_hits("bench path", collision, *keep["gate_inputs"], hit_k=hits)
+    lib, states, params, K, cam, H, W, env = keep["render_inputs"]
+    n_active = states.active.sum(dim=1)
+    k2 = None
+    for b in dict.fromkeys([int(n_active.argmax()), int(n_active.argmin())]):
+        one = check_march(f"bench path, scene {b}", lib, index_scenes(states, b),
+                          index_scenes(params, b), K, cam, H, W, env,
+                          frame={k: v[b] for k, v in frames.items()})
+        k2 = one if k2 is None else k2  # the fullest scene's numbers are the ones kept
+    k1_bound, k1_by = bound_of(k1["ops"], k1["bytes"])
+    at_bench = {
+        "box_hits": {"shapes": "P=131072, C=2048, K=3 open boxes, A=7, margin 0",
+                     "mismatch_frac": k1["n_diff"] / k1["n_entries"], "ms": k1["ms"],
+                     "wrapper_ms": k1["wrapper_ms"], "plain_ms": k1["plain_ms"],
+                     "bound_ms": k1_bound, "bound_by": k1_by},
+        "march_csg": {k: k2[k] for k in ("shapes", "max_abs_err", "ms", "wrapper_ms", "plain_ms",
+                                         "bound_ms", "bound_by")},
+    }
+    return launches, at_bench
 
 
 # --------------------------------------------------------------------------
@@ -286,11 +532,12 @@ def check_march(dev, scene, state, params):
 
 
 def main_path(dev):
-    from catgrasp_tpu_torch.ops import collision, render_march
+    from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
     from catgrasp_tpu_torch.pipelines import run_grasp_simulation as rgs
 
     collision.box_hits.launches = 0
     render_march.march_csg.launches = 0
+    fused_rollout.rollout_fused.launches = 0
     t0 = time.perf_counter()
     scene = rgs.setup_scene("nut", n_objects=5, render_hw=(384, 512), device=dev)
     torch.cuda.synchronize()
@@ -301,7 +548,8 @@ def main_path(dev):
     res = rgs.oracle_cone_attempt(scene, state, params, rng, gen)
     torch.cuda.synchronize()
     launches = {"box_hits": collision.box_hits.launches,
-                "march_csg": render_march.march_csg.launches}
+                "march_csg": render_march.march_csg.launches,
+                "rollout_fused": fused_rollout.rollout_fused.launches}
     times.update(res.timings)
     times["total_s"] = time.perf_counter() - t0
     print("main path stage times (s, synchronised): "
@@ -325,6 +573,8 @@ def main_path(dev):
         fail(f"box_hits launched {launches['box_hits']} times for {len(res.tried)} filter calls")
     if launches["march_csg"] < 1:
         fail("march_csg was not launched on the main path")
+    if launches["rollout_fused"] != 0:
+        fail("the eval's settle runs the engine, not rollout_fused")
     out = res.out
     if out["depth"].shape != (384, 512) or not all(torch.isfinite(v).all() for v in out.values()):
         fail("render output has the wrong shape or non-finite values")
@@ -387,7 +637,8 @@ def main() -> None:
 
     k1 = check_box_hits(dev)
     scene, state, params, launches, times = main_path(dev)
-    k2 = check_march(dev, scene, state, params)
+    k2 = check_march("eval path", scene.lib, state, params, scene.K,
+                     torch.as_tensor(scene.cam, device=dev), scene.H, scene.W, scene.env_bin)
 
     # where the main path's time goes on the device (launches made here are
     # outside the counted run)
@@ -402,23 +653,37 @@ def main() -> None:
                                                    torch.Generator(device=dev).manual_seed(0)),
                    times["render_s"] + times["occupancy_s"] + times["sample_filter_s"])
 
-    k1_bound = max(k1["bytes"] / HBM_BYTES_PER_S, k1["ops"] / F32_OPS_PER_S) * 1e3
+    k3 = check_rollout(dev)
+    bench_launches, at_bench = bench_path(dev)
+
+    k1_bound, k1_by = bound_of(k1["ops"], k1["bytes"])
     kernels = [
         {"name": "box_hits", "route": "cuda", "source": "catgrasp_tpu_torch/csrc/box_hits.cu",
          "replaces": "catgrasp_tpu/ops/collision.py:81", "launches": launches["box_hits"],
+         "launches_bench_path": bench_launches["box_hits"],
          "max_abs_err": float(k1["n_diff"] > 0), "mismatch_frac": k1["n_diff"] / k1["n_entries"],
          "ms": k1["ms"], "wrapper_ms": k1["wrapper_ms"], "timing": k1["timing"],
-         "plain_ms": k1["plain_ms"], "bound_ms": k1_bound,
-         "bound_by": "operations" if k1["ops"] / F32_OPS_PER_S > k1["bytes"] / HBM_BYTES_PER_S
-         else "bytes", "library_ms": None,
-         "shapes": f"P={N_POSES}; C=512 (3 open boxes) + C=4096 (closing box); A=7"},
+         "plain_ms": k1["plain_ms"], "bound_ms": k1_bound, "bound_by": k1_by,
+         "library_ms": None,
+         "shapes": f"P={N_POSES}; C=512 (3 open boxes) + C=4096 (closing box); A=7",
+         "at_bench_path": at_bench["box_hits"]},
         {"name": "march_csg", "route": "cuda", "source": "catgrasp_tpu_torch/csrc/march_csg.cu",
          "replaces": "catgrasp_tpu/ops/render_march.py:223", "launches": launches["march_csg"],
+         "launches_bench_path": bench_launches["march_csg"],
          "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "wrapper_ms": k2["wrapper_ms"],
          "timing": k2["timing"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
-         "shapes": f"{scene.H}x{scene.W} rays, {state.pos.shape[0]} bodies, "
-                   f"{scene.env_bin.center.shape[0]} env boxes, 64 steps"},
+         "shapes": k2["shapes"], "at_bench_path": at_bench["march_csg"]},
+        {"name": "rollout_fused", "route": "cuda",
+         "source": "catgrasp_tpu_torch/csrc/fused_rollout.cu",
+         "replaces": "catgrasp_tpu/ops/fused_rollout.py:531",
+         "launches": bench_launches["rollout_fused"],
+         "launches_bench_path": bench_launches["rollout_fused"],
+         "max_abs_err": k3["max_abs_err"], "within_tol_frac": k3["within_tol_frac"],
+         "ms": k3["ms"], "wrapper_ms": k3["wrapper_ms"], "prepare_ms": k3["prepare_ms"],
+         "timing": k3["timing"], "plain_ms": k3["plain_ms"], "engine_ms": k3["engine_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
+         "shapes": k3["shapes"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -13,6 +13,7 @@ import torch
 from catgrasp_tpu.geom import csg as jcsg
 from catgrasp_tpu.geom import primitives as jprim
 from catgrasp_tpu.sim import engine as jengine
+from catgrasp_tpu.sim import env_pile as jpile
 from catgrasp_tpu.sim.types import SceneParams as JSceneParams
 from catgrasp_tpu.sim.types import SceneState as JSceneState
 from catgrasp_tpu.sim.types import build_shape_lib as jbuild_shape_lib
@@ -74,6 +75,25 @@ def pile_scene_jax():
         active=jnp.ones((3,), bool))
     env = jengine.StaticEnv.open_bin((0.18, 0.18, 0.08))
     return lib, state, params, env
+
+
+def pile_batch_jax(batch: int = 8, max_bodies: int = 4, n_surf: int = 16, lower: float = 0.05):
+    """The fixture of ``tests/test_fused_rollout.py``: ``batch`` scenes of up
+    to ``max_bodies`` bodies (nut, screw) reset by JAX over the open bin.
+    Returns (cfg, lib, env, states, low, params); ``low`` is ``states``
+    dropped ``lower`` m, so that contacts start within a few steps."""
+    import jax
+
+    cfg = jpile.PileConfig(max_bodies=max_bodies)
+    specs = [("nut", 0), ("screw", 0)]
+    meshes = [jprim.make_instance(c, "train", i) for c, i in specs]
+    csgs = [jcsg.make_csg_instance(c, "train", i) for c, i in specs]
+    lib = jbuild_shape_lib(meshes, csgs, n_surf=n_surf)
+    env = jengine.StaticEnv.open_bin(cfg.bin_inner)
+    keys = jax.random.split(jax.random.PRNGKey(0), batch)
+    states, params = jax.vmap(lambda k: jpile.reset(k, lib, cfg))(keys)
+    low = states.replace(pos=states.pos.at[..., 2].add(-lower))
+    return cfg, lib, env, states, low, params
 
 
 def top_camera(z: float = 0.3) -> np.ndarray:

@@ -10,12 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from catgrasp_tpu_torch import convert
+from catgrasp_tpu_torch import bench, convert
 from catgrasp_tpu_torch.geom import csg, primitives
-from catgrasp_tpu_torch.ops import collision, render_march
+from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
 from catgrasp_tpu_torch.pipelines import run_grasp_simulation as rgs
-from catgrasp_tpu_torch.sim import engine
-from catgrasp_tpu_torch.sim.types import SceneState, build_shape_lib
+from catgrasp_tpu_torch.sim import engine, env_pile
+from catgrasp_tpu_torch.sim.types import SceneState, build_shape_lib, stack_scenes
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -57,6 +57,12 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         lambda: convert.scene_state_from_numpy(
             {"pos": np.zeros((1, 3)), "quat": np.eye(4)[:1], "linvel": np.zeros((1, 3)),
              "angvel": np.zeros((1, 3)), "active": np.ones(1, bool)}),
+        lambda: bench.run(),
+        lambda: bench.bench_env_steps(batch=2, max_bodies=2, n_surf=8, steps_per_call=1,
+                                      n_calls=1),
+        lambda: bench.bench_collision_gate(n_poses=4, n_points=4, n_calls=1),
+        lambda: bench.bench_ik_gate(n_poses=4, n_calls=1),
+        lambda: bench.bench_render(batch=1, hw=(4, 4), n_calls=1),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -74,17 +80,23 @@ def test_kernel_wrappers_launch_nothing_for_cpu_tensors():
     state = SceneState.create(1, device="cpu")
     state.active[:] = True
     d = torch.tensor([[0.0, 0.0, -1.0]])
-    n0 = (collision.box_hits.launches, render_march.march_csg.launches)
+    n0 = (collision.box_hits.launches, render_march.march_csg.launches,
+          fused_rollout.rollout_fused.launches)
     t = render_march.march_csg(lib, state, params, torch.tensor([0.008, 0.0, 0.5]), d,
                                torch.tensor([3.0]))
     assert abs(float(t[0]) - (0.5 - 0.00375)) < 1e-3  # the nut's top face, off the hole
     collision.box_hits(torch.eye(4)[None], torch.zeros((1, 3)), torch.ones(1, dtype=torch.bool),
                        ((((0.0, 0.0, 0.0)), (1.0, 1.0, 1.0)),), (0.0,), 5e-4)
-    assert (collision.box_hits.launches, render_march.march_csg.launches) == n0
+    state.pos[0, 2] = 0.1
+    out = fused_rollout.rollout_fused(stack_scenes([state]), stack_scenes([params]), lib,
+                                      engine.StaticEnv.open_bin(device="cpu"), 2)
+    assert out.pos.shape == (1, 1, 3) and float(out.pos[0, 0, 2]) < 0.1  # it falls
+    assert (collision.box_hits.launches, render_march.march_csg.launches,
+            fused_rollout.rollout_fused.launches) == n0
 
 
 def test_cuda_tensors_launch_the_kernels(monkeypatch):
-    """On CUDA tensors both wrappers build and launch their kernels (each
+    """On CUDA tensors every wrapper builds and launches its kernel (each
     launch counted); the plain versions are never taken there."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
@@ -95,6 +107,7 @@ def test_cuda_tensors_launch_the_kernels(monkeypatch):
 
     monkeypatch.setattr(collision, "box_hits_plain", no_plain)
     monkeypatch.setattr(render_march, "march_csg_plain", no_plain)
+    monkeypatch.setattr(fused_rollout, "rollout_fused_plain", no_plain)
     build.build_all()
     dev = torch.device("cuda")
     n0 = (collision.box_hits.launches, render_march.march_csg.launches)
@@ -114,3 +127,11 @@ def test_cuda_tensors_launch_the_kernels(monkeypatch):
     assert bool(hit[0, 0]) and abs(float(t[0]) - (0.5 - 0.00375)) < 1e-3
     assert (collision.box_hits.launches, render_march.march_csg.launches) == (n0[0] + 1,
                                                                               n0[1] + 1)
+    n3 = fused_rollout.rollout_fused.launches
+    cfg = env_pile.PileConfig(max_bodies=3)
+    states, bparams = env_pile.reset_batch(torch.Generator(device=dev).manual_seed(0), lib, cfg, 5)
+    out = fused_rollout.rollout_fused(states, bparams, lib,
+                                      engine.StaticEnv.open_bin(device=dev), 3)
+    torch.cuda.synchronize()
+    assert fused_rollout.rollout_fused.launches == n3 + 1
+    assert bool((out.pos[..., 2][out.active] < states.pos[..., 2][out.active]).all())

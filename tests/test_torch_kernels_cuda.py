@@ -11,11 +11,12 @@ import torch
 
 from catgrasp_tpu_torch.geom import csg, primitives
 from catgrasp_tpu_torch.grasp import filter as gfilter
-from catgrasp_tpu_torch.ops import collision, render_march
+from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
 from catgrasp_tpu_torch.render import raymarch
-from catgrasp_tpu_torch.sim import engine
+from catgrasp_tpu_torch.sim import engine, env_pile
 from catgrasp_tpu_torch.sim.env_grasp import GripperSpec
-from catgrasp_tpu_torch.sim.types import SceneParams, SceneState, build_shape_lib
+from catgrasp_tpu_torch.sim.types import (SceneParams, SceneState, build_shape_lib,
+                                          index_scenes)
 
 torch.set_num_threads(2)
 OFFSETS = tuple(float(o) for o in gfilter.ADJUST_OFFSETS)
@@ -100,3 +101,97 @@ def test_march_kernel_matches_plain(dev):
     t_k = render_march.march_csg(lib, state, params, o_w, d_w, tmax, env=env)
     seg = raymarch.shade(lib, state, params, cam, H, W, env, d_w, d_cam, tmax, t_k)["seg"]
     assert not (seg == 1).any()
+
+
+def _pile_batch(dev, specs, n_surf, max_bodies, batch, fall_steps):
+    """A reset batch over the open bin, dropped for ``fall_steps`` through
+    the kernel so that what follows are contact steps."""
+    lib = build_shape_lib([primitives.make_instance(c, "train", i) for c, i in specs],
+                          [csg.make_csg_instance(c, "train", i) for c, i in specs],
+                          n_surf=n_surf, device=dev)
+    cfg = env_pile.PileConfig(max_bodies=max_bodies)
+    env = engine.StaticEnv.open_bin(cfg.bin_inner, device=dev)
+    states, params = env_pile.reset_batch(torch.Generator(device=dev).manual_seed(0), lib, cfg,
+                                          batch)
+    states = fused_rollout.rollout_fused(states, params, lib, env, fall_steps, dt=cfg.dt)
+    return cfg, lib, env, states, params
+
+
+FIELDS = ("pos", "quat", "linvel", "angvel")
+
+
+@pytest.mark.parametrize("specs,n_surf,max_bodies,batch", [
+    ((("nut", 0), ("screw", 0)), 16, 4, 37),  # two bodies a warp, a ragged batch
+    ((("nut", 0), ("screw", 0), ("hnm", 0), ("nut", 3)), 32, 10, 64),  # the bench's shapes
+    ((("hnm", 0), ("screw", 0)), 20, 3, 5),  # points not a power of two, a padded last warp
+])
+def test_rollout_kernel_matches_plain(dev, specs, n_surf, max_bodies, batch):
+    cfg, lib, env, states, params = _pile_batch(dev, specs, n_surf, max_bodies, batch, 60)
+    for n_steps in (1, 5):
+        n0 = fused_rollout.rollout_fused.launches
+        k = fused_rollout.rollout_fused(states, params, lib, env, n_steps, dt=cfg.dt)
+        p = fused_rollout.rollout_fused_plain(states, params, lib, env, n_steps, dt=cfg.dt)
+        torch.cuda.synchronize()
+        assert fused_rollout.rollout_fused.launches == n0 + 1
+        act = k.active
+        err = {f: (getattr(k, f) - getattr(p, f)).abs().amax(dim=-1)[act] for f in FIELDS}
+        within = ((err["pos"] < 1e-4) & (err["quat"] < 1e-3) & (err["linvel"] < 1e-2)
+                  & (err["angvel"] < 1e-2))
+        # a contact that flips at phi ~ 0 may put single bodies outside
+        assert within.float().mean().item() >= 0.99, {f: e.max().item() for f, e in err.items()}
+        assert torch.equal(k.pos[~act], states.pos[~act])
+    # the compared steps were contact steps
+    assert (k.linvel[..., 2].abs() < 0.9 * 9.8 * 60 * cfg.dt)[k.active].any()
+    # deterministic: the same input gives the same bits
+    a = fused_rollout.rollout_fused(states, params, lib, env, 30, dt=cfg.dt)
+    b = fused_rollout.rollout_fused(states, params, lib, env, 30, dt=cfg.dt)
+    assert all(torch.equal(getattr(a, f), getattr(b, f)) for f in FIELDS)
+    # a scene alone gives what it gives in the batch
+    one = fused_rollout.rollout_fused(index_scenes(states, slice(2, 3)),
+                                      index_scenes(params, slice(2, 3)), lib, env, 30, dt=cfg.dt)
+    assert torch.equal(one.pos[0], a.pos[2])
+
+
+def test_rollout_kernel_settles_and_keeps_static_bodies(dev):
+    specs = (("nut", 0), ("screw", 0), ("hnm", 0), ("nut", 3))
+    cfg, lib, env, states, params = _pile_batch(dev, specs, 32, 10, 128, 0)
+    k = fused_rollout.rollout_fused(states, params, lib, env, 150, dt=cfg.dt)
+    p = fused_rollout.rollout_fused_plain(states, params, lib, env, 150, dt=cfg.dt)
+    torch.cuda.synchronize()
+    act = k.active
+    zk, zp = k.pos[..., 2][act], p.pos[..., 2][act]
+    # the algorithm lets a body that reaches the 1 cm floor at ~2 m/s (the top
+    # of a 10-body column) pass through it: rare, and the same bodies in both
+    low_k, low_p = zk < -0.02, zp < -0.02
+    assert torch.equal(low_k, low_p), (low_k.sum().item(), low_p.sum().item())
+    assert low_k.sum().item() <= 0.02 * zk.numel()
+    assert abs(zk[~low_k].mean().item() - zp[~low_p].mean().item()) < 1e-3
+    assert zk.median().item() > 0.0 and zk.median().item() < 0.03
+    # halving dt keeps the settle height of the bodies that stayed in the bin
+    zh = fused_rollout.rollout_fused(states, params, lib, env, 300, dt=cfg.dt / 2).pos[..., 2][act]
+    assert abs(zh[zh > -0.02].mean().item() - zk[zk > -0.02].mean().item()) < 0.01
+    # a static body (held in mid-air, the others fall past it) stays where it is
+    mass, inertia = params.mass.clone(), params.inertia.clone()
+    mass[:, 0], inertia[:, 0] = 1e9, 1e9
+    s = fused_rollout.rollout_fused(states, params.replace(mass=mass, inertia=inertia), lib, env,
+                                    30, dt=cfg.dt)
+    assert torch.equal(s.pos[:, 0], states.pos[:, 0]) and torch.equal(s.quat[:, 0],
+                                                                      states.quat[:, 0])
+    assert (s.pos[:, 1:] - states.pos[:, 1:]).abs().max().item() > 1e-3  # the rest fell
+
+
+def test_rollout_rejects_what_the_kernel_cannot_take(dev):
+    specs = (("nut", 0),)
+    lib = build_shape_lib([primitives.make_instance(c, "test", i) for c, i in specs],
+                          [csg.make_csg_instance(c, "test", i) for c, i in specs],
+                          n_surf=256, device=dev)
+    cfg = env_pile.PileConfig(max_bodies=6)
+    env = engine.StaticEnv.open_bin(cfg.bin_inner, device=dev)
+    states, params = env_pile.reset_batch(torch.Generator(device=dev).manual_seed(0), lib, cfg, 2)
+    n0 = fused_rollout.rollout_fused.launches
+    # the eval's own shapes: 6 bodies x 256 points do not fit a block
+    with pytest.raises(ValueError, match="N=6 bodies, P=256 points"):
+        fused_rollout.rollout_fused(states, params, lib, env, 1)
+    with pytest.raises(ValueError, match="float32"):
+        fused_rollout.rollout_fused(states.replace(pos=states.pos.double()), params, lib, env, 1)
+    assert fused_rollout.rollout_fused.launches == n0
