@@ -5,9 +5,10 @@ gate, then the collision gate — the scene clouds moved into each grasp
 frame and tested against the gripper's analytic boxes for 7 lateral offsets
 (reference search order 0, +1, -1, +2, -2, +3, -3 mm) and, with
 ``adjust_depth``, 4 approach depths.  The collision gate is kernel K1
-(``ops.collision.box_hits``): two launches per depth, one for the open
+(``ops.collision.box_hits_depths``): two launches a call, one for the open
 gripper against the collision cloud and one for the closing volume against
-the background cloud.  All stages produce masks over a fixed (G*S)
+the background cloud, each answering every depth (a depth shifts the boxes
++x) from one pass over its cloud.  All stages produce masks over a fixed (G*S)
 candidate axis; callers compact on the host.
 """
 from __future__ import annotations
@@ -105,17 +106,15 @@ def filter_grasp_poses(
     offsets = ADJUST_OFFSETS if adjust else ADJUST_OFFSETS[:1]
     depths = DEPTH_OFFSETS if adjust_depth else DEPTH_OFFSETS[:1]
     off_static = tuple(float(o) for o in offsets)
+    depth_static = tuple(float(d) for d in depths)
     T_inv = collision.pose_inverse_batch(T).contiguous()
-    frees = []
-    for d in depths:
-        hit_open = collision.box_hits(
-            T_inv, collision_cloud, collision_mask,
-            _static_open_boxes(spec, float(d)), off_static, margin)
-        hit_enc = collision.box_hits(
-            T_inv, background_cloud, background_mask,
-            _static_enclosed_box(spec, float(d)), off_static, margin)
-        frees.append(~(hit_open | hit_enc))
-    free = torch.stack(frees, dim=1)  # (GS, D, A)
+    hit_open = collision.box_hits_depths(
+        T_inv, collision_cloud, collision_mask,
+        _static_open_boxes(spec), off_static, depth_static, margin)
+    hit_enc = collision.box_hits_depths(
+        T_inv, background_cloud, background_mask,
+        _static_enclosed_box(spec), off_static, depth_static, margin)
+    free = ~(hit_open | hit_enc)  # (GS, D, A)
 
     # selection: deepest collision-free engagement wins; within a depth, the
     # reference's lateral search order (first free)

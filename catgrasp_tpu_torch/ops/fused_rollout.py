@@ -20,7 +20,10 @@ rounded values.
 ``rollout_fused`` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  The per-scene gathers
 (surface points and CSG rows by ``shape_id``, inverse mass and inertia, env
-rotation matrices) are done once a call in PyTorch by ``prepare``, for both.
+rotation matrices) are done once a call: by the kernel while it stages a
+scene, from the tensors as the caller holds them, and in PyTorch by
+``prepare`` for the plain version.  ``stage_plain`` is the kernel's staging
+written out in PyTorch, scene by scene; the tests hold it to ``prepare``.
 """
 from __future__ import annotations
 
@@ -196,6 +199,62 @@ def prepare(state: SceneState, params: SceneParams, lib: ShapeLib, env: StaticEn
     return Prepared(body=body.float().contiguous(), surf=surf.float().contiguous(),
                     csg_i=csg_i.contiguous(), csg_f=csg_f.float().contiguous(),
                     env=env_f.float().contiguous())
+
+
+def csg_bound_radius(csg) -> torch.Tensor:
+    """(K,) radius about the shape origin, at unit scale, of a sphere that
+    holds each CSG of the stacked ``csg``: the farthest reach of its union
+    slots (a subtraction only removes).  The kernel tests a point against
+    this sphere, widened by 0.1% and 1 um, before it evaluates the CSG; a
+    hex prism's corner lies at apothem * sqrt(1 + 0.57735^2) < 1.1548
+    apothem."""
+    t, q = csg.types, csg.params
+    is_box = t == BOX
+    a = torch.where(is_box | (t == CYLINDER), q[..., 0], 1.1548 * q[..., 0])
+    b = torch.where(is_box, q[..., 1], 0.0)
+    c = torch.where(is_box, q[..., 2], q[..., 1])
+    reach = torch.linalg.vector_norm(csg.offsets, dim=-1) + torch.sqrt(a * a + b * b + c * c)
+    return torch.where((t != NONE) & (csg.ops > 0), reach, 0.0).amax(dim=-1)
+
+
+def stage_plain(state: SceneState, params: SceneParams, lib: ShapeLib, env: StaticEnv,
+                scene: int) -> Prepared:
+    """What the kernel's block stages for scene ``scene``, written out body by
+    body and env box by env box from the tensors as the caller holds them:
+    the counterpart of ``prepare`` for one scene (leading axis 1)."""
+    N, S = state.pos.shape[1], lib.csg.types.shape[1]
+    dev = state.pos.device
+    one, zero = torch.ones((), device=dev), torch.zeros((), device=dev)
+    body, surf, csg_i, csg_f = [], [], [], []
+    for b in range(N):
+        sid = int(params.shape_id[scene, b])
+        mass, scale = params.mass[scene, b], params.scale[scene, b]
+        act = bool(state.active[scene, b])
+        dyn = act and bool(mass < STATIC_MASS)
+        inv_m = one / mass if dyn else zero
+        inv_i = [one / params.inertia[scene, b, k] if dyn else zero for k in range(3)]
+        body.append(torch.stack([one * act, one * dyn, inv_m, *inv_i,
+                                 params.friction[scene, b], scale]))
+        surf.append(lib.surf_pts[sid] * scale)
+        csg_i.append(torch.cat([lib.csg.types[sid], lib.csg.ops[sid]]).to(torch.int32))
+        csg_f.append(torch.cat([lib.csg.params[sid].reshape(3 * S),
+                                lib.csg.offsets[sid].reshape(3 * S)]))
+    rows = []
+    for m in range(env.center.shape[0]):
+        on = bool(env.enabled[m])
+        q = env.quat[m]
+        nrm = torch.sqrt(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]) + 1e-12
+        w, x, y, z = (q[k] / nrm for k in range(4))
+        rot = [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+               2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+               2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]
+        center = env.center[m] if on else torch.full((3,), 1e6, device=dev)
+        rows.append(torch.cat([center, env.half[m],
+                               torch.stack(rot), env.vel[m] if on else torch.zeros(3, device=dev),
+                               env.friction[m:m + 1]]))
+    return Prepared(body=torch.stack(body)[None].float(), surf=torch.stack(surf)[None].float(),
+                    csg_i=torch.stack(csg_i)[None], csg_f=torch.stack(csg_f)[None].float(),
+                    env=torch.stack(rows).float() if rows else torch.zeros((0, 19), device=dev))
 
 
 def _step_constants(dt, gravity, linear_damping, angular_damping):
@@ -515,16 +574,48 @@ def rollout_fused_plain(state: SceneState, params: SceneParams, lib: ShapeLib, e
 # ---------------------------------------------------------------------------
 
 
+_ARG_POINTERS = ("pos", "quat", "lin", "ang", "active", "shape_id", "scale", "mass", "inertia",
+                 "friction", "surf", "types", "ops", "prm", "off", "e_center", "e_half",
+                 "e_quat", "e_vel", "e_friction", "e_enabled", "o_pos", "o_quat", "o_lin",
+                 "o_ang")
+_ARG_INTS = ("N", "P", "S", "M", "K", "n_steps", "n_iter")
+_ARG_FLOATS = ("dt", "g_dt", "inv_dt_b", "lin_keep", "ang_keep")
+
+
+class _RolloutArgs(ctypes.Structure):
+    """``RolloutArgs`` of ``csrc/fused_rollout.cu``, field for field."""
+
+    _fields_ = ([(n, ctypes.c_void_p) for n in _ARG_POINTERS]
+                + [(n, ctypes.c_int) for n in _ARG_INTS]
+                + [(n, ctypes.c_float) for n in _ARG_FLOATS])
+
+
 def _library():
     lib = build.load("fused_rollout")
     fn = lib.fused_rollout_launch
     if fn.argtypes is None:  # declare the C signatures once
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_float] * 5
-                       + [ctypes.c_void_p] * 2)
+        fn.argtypes = [ctypes.POINTER(_RolloutArgs), ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.fused_rollout_smem_bytes.argtypes = [ctypes.c_int] * 4
+        for f in (lib.fused_rollout_smem_bytes, lib.fused_rollout_blocks_per_sm):
+            f.argtypes = [ctypes.c_int] * 4
         lib.fused_rollout_smem_bytes.restype = ctypes.c_longlong
+        lib.fused_rollout_blocks_per_sm.restype = ctypes.c_int
     return lib
+
+
+def kernel_footprint(N: int, P: int, S: int, M: int) -> dict:
+    """Shared memory a block of the kernel asks for at these shapes and the
+    blocks that fit one SM at once (by registers and shared memory), from the
+    built library and the CUDA occupancy calculator."""
+    clib = _library()
+    return {"threads": -(-N * P // 32) * 32,
+            "smem_bytes": int(clib.fused_rollout_smem_bytes(N, P, S, M)),
+            "blocks_per_sm": int(clib.fused_rollout_blocks_per_sm(N, P, S, M))}
+
+
+def _as(t: torch.Tensor, dtype) -> torch.Tensor:
+    """``t`` as a contiguous tensor of ``dtype``: itself where it already is."""
+    return t if t.dtype == dtype and t.is_contiguous() else t.to(dtype).contiguous()
 
 
 def rollout_fused(state: SceneState, params: SceneParams, lib: ShapeLib, env: StaticEnv,
@@ -552,24 +643,40 @@ def rollout_fused(state: SceneState, params: SceneParams, lib: ShapeLib, env: St
     clib = _library()
     smem = int(clib.fused_rollout_smem_bytes(N, P, S, M))
     if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"rollout_fused: a scene's contact slabs and state need {smem} bytes of "
-                         f"shared memory, over the {MAX_SMEM_BYTES} a block may have; got {shapes}")
-    c = prepare(state, params, lib, env)
-    s_in = torch.cat([state.pos, state.quat, state.linvel, state.angvel], dim=-1).contiguous()
-    s_out = torch.empty_like(s_in)
+        raise ValueError(f"rollout_fused: a scene's state and contact storage need {smem} bytes "
+                         f"of shared memory, over the {MAX_SMEM_BYTES} a block may have; got "
+                         f"{shapes}")
+    f32, i32 = torch.float32, torch.int32
+    out = {f: torch.empty_like(getattr(state, f)) for f in ("pos", "quat", "linvel", "angvel")}
     g_dt, inv_dt_b, lin_keep, ang_keep = _step_constants(dt, gravity, linear_damping,
                                                          angular_damping)
+    # every tensor the kernel reads, as the caller holds it (kept alive here
+    # until the launch is enqueued)
+    tensors = dict(
+        pos=state.pos, quat=state.quat, lin=state.linvel, ang=state.angvel,
+        active=_as(state.active, torch.bool).view(torch.uint8),
+        shape_id=_as(params.shape_id, torch.int64), scale=_as(params.scale, f32),
+        mass=_as(params.mass, f32), inertia=_as(params.inertia, f32),
+        friction=_as(params.friction, f32), surf=_as(lib.surf_pts, f32),
+        types=_as(lib.csg.types, i32), ops=_as(lib.csg.ops, i32), prm=_as(lib.csg.params, f32),
+        off=_as(lib.csg.offsets, f32), e_center=_as(env.center, f32), e_half=_as(env.half, f32),
+        e_quat=_as(env.quat, f32), e_vel=_as(env.vel, f32), e_friction=_as(env.friction, f32),
+        e_enabled=_as(env.enabled, torch.bool).view(torch.uint8),
+        o_pos=out["pos"], o_quat=out["quat"], o_lin=out["linvel"], o_ang=out["angvel"])
+    for name, t in tensors.items():
+        if t.device != state.pos.device:
+            raise ValueError(f"rollout_fused {name}: on {t.device}, the state on "
+                             f"{state.pos.device}")
     if B > 0:
+        args = _RolloutArgs(**{k: t.data_ptr() for k, t in tensors.items()}, N=N, P=P, S=S, M=M,
+                            K=lib.surf_pts.shape[0], n_steps=int(n_steps), n_iter=int(n_iter),
+                            dt=dt, g_dt=g_dt, inv_dt_b=inv_dt_b, lin_keep=lin_keep,
+                            ang_keep=ang_keep)
         status = clib.fused_rollout_launch(
-            s_in.data_ptr(), c.body.data_ptr(), c.surf.data_ptr(), c.csg_i.data_ptr(),
-            c.csg_f.data_ptr(), c.env.data_ptr(), B, N, P, S, M, int(n_steps), int(n_iter),
-            dt, g_dt, inv_dt_b, lin_keep, ang_keep, s_out.data_ptr(),
-            torch.cuda.current_stream(s_in.device).cuda_stream)
+            ctypes.byref(args), B, torch.cuda.current_stream(state.pos.device).cuda_stream)
         build.check_status(status, "rollout_fused")
         rollout_fused.launches += 1
-    return state.replace(pos=s_out[..., 0:3].contiguous(), quat=s_out[..., 3:7].contiguous(),
-                         linvel=s_out[..., 7:10].contiguous(),
-                         angvel=s_out[..., 10:13].contiguous())
+    return state.replace(**out)
 
 
 rollout_fused.launches = 0

@@ -7,9 +7,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the three CUDA kernels with ``nvcc`` from ``catgrasp_tpu_torch/csrc``;
-3. kernel K1 ``box_hits`` against its plain PyTorch version at the grasp
-   filter's shapes (254,848 poses; 512 points x 3 open-gripper boxes and
-   4,096 points x the closing box; 7 offsets): agreement, times, bound;
+3. kernel K1 ``box_hits`` against its plain PyTorch version: every compiled
+   variant and the one with run-time counts on a ragged case, then the grasp
+   filter's gate as the filter launches it (254,848 random poses; 512 points
+   x 3 open-gripper boxes and 4,096 points x the closing box; 7 offsets x 4
+   depths a launch): agreement, times, bound, and the lane use a
+   one-thread-a-pose mapping would have on those inputs;
 4. the main path, once, at the eval's full size: nut scene set-up, pile
    reset and a 500-step settle, render at 384x512, occupancy, cone sampling
    and the filter — with every kernel's launch count set to 0 just before
@@ -17,10 +20,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 5. kernel K2 ``march_csg`` against its plain version on that settled
    scene at 384x512: agreement, times, bound;
 6. a device-time profile (torch.profiler) of 20 settle steps and of one
-   attempt, by kernel;
+   attempt, by kernel; the attempt's own collision-gate inputs are recorded
+   and K1 is held against its plain version and timed on them (the whole
+   gate of one filter call: 2 launches);
 7. kernel K3 ``rollout_fused`` against its plain version at the throughput
    entry point's shapes (10 bodies x 32 points, 5 bin boxes) on 128 scenes:
-   1, 5 and 50 steps, and two kernel runs bit for bit;
+   1, 5 and 50 steps, two kernel runs bit for bit, then a batch with no
+   contact for the whole call, a settled batch and a batch with every body
+   active;
 8. the second path, once, at full width: ``catgrasp_tpu_torch.bench`` (1,024
    scenes x 5 calls of 50 steps through K3 and once through the eager engine;
    the collision gate through K1; the IK gate; 8 x 9 frames through K2) —
@@ -28,7 +35,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    then K1 and K2 against their plain versions at that path's own shapes:
    the hit matrix and two of the frames it computed, on its own inputs;
 9. K3's times on the 1,024-scene, 50-step call (kernel, wrapper, plain
-   version, eager engine) and its bound from that call's own contacts;
+   version, eager engine) and its bound from that call's own contacts; the
+   kernel's time with the iterations off, on settled piles and with every
+   body active; its registers, shared memory and blocks an SM;
 10. a ``kernels`` JSON line, the card line, then ``{"ok": true, ...}``.
 
 It imports nothing of the JAX package.  Without a GPU it exits non-zero
@@ -55,10 +64,12 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
     """Median wall time of ``fn`` on the device, in ms, from CUDA events
-    around each call (after one warm-up call)."""
-    fn()
+    around each call (after one warm-up call, unless the call is too long to
+    make twice)."""
+    if warm_up:
+        fn()
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -71,9 +82,11 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def kernel_ms(fn, kernel: str, reps: int = 20):
-    """Mean device time of the CUDA kernel named ``kernel`` per call of
-    ``fn``, in ms, from torch.profiler's CUPTI trace; None when the trace
-    shows no device time for it."""
+    """Mean device time of one launch of the CUDA kernel named ``kernel``
+    over ``reps`` calls of ``fn`` (each launches it once), in ms, from
+    torch.profiler's CUPTI trace; None when the trace shows no device time
+    for it.  The mean is taken over the launches the trace holds: late in a
+    long process it drops some, and a sum over all calls would read low."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -81,12 +94,15 @@ def kernel_ms(fn, kernel: str, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    total_us, seen = 0.0, 0
     for evt in prof.key_averages():
         if kernel in evt.key:
             t = getattr(evt, "device_time_total", None)
             total_us += t if t is not None else getattr(evt, "cuda_time_total", 0.0)
-    return total_us / reps / 1e3 if total_us > 0 else None
+            seen += evt.count
+    if seen != reps:
+        print(f"  (the profiler's trace holds {seen} of {reps} launches of {kernel})", flush=True)
+    return total_us / seen / 1e3 if total_us > 0 else None
 
 
 def timed(fn, kernel: str):
@@ -119,66 +135,163 @@ def random_poses(rng, n: int) -> np.ndarray:
 # --------------------------------------------------------------------------
 
 
-def box_hits_work(collision, t_inv, cloud, mask, boxes, offsets, margin):
-    """Operations this run's data needs: a pose examines points in order
-    until all its offsets are hit (the kernel's early exit), each examined
-    point costs the 3x4 transform (9 FMA = 18 ops) and per box the x/z test
-    (4 ops), and each x/z pass costs the y test per offset (3 ops)."""
-    centers, halves, offs = collision._static_arrays(boxes, offsets, cloud.device)
-    P, C, K, A = t_inv.shape[0], cloud.shape[0], len(boxes), len(offsets)
+def box_hits_work(collision, t_inv, cloud, mask, boxes, offsets, depths, margin):
+    """(operations, operations depth by depth, [need of each depth]) of a
+    launch.  A pose examines points in order until all its depth x offset
+    bits are set (``need`` points, the early exit: the largest need over its
+    depths).  Each examined point costs the 3x4 transform once (9 FMA = 18
+    ops), per box the z test (2 ops) and per box and depth the x test (2
+    ops); each (point, box) that passes z, and x at some depth, costs the y
+    test per offset (3 ops).  The second figure is the single-depth count
+    summed over the depths, as D launches of a single-depth kernel would do
+    them (transform and z test once a depth, the y tests once an x/z pass a
+    depth); at one depth the two are equal."""
+    centers, halves, offs, centers_x = collision._static_arrays(boxes, offsets, depths,
+                                                                cloud.device)
+    P, C, K, A, D = t_inv.shape[0], cloud.shape[0], len(boxes), len(offsets), len(depths)
     R, t = t_inv[:, :3, :3], t_inv[:, :3, 3]
     chunk = max(1, (1 << 20) // C)
-    ops = 0.0
+    ops, ops_by_depth, needs = 0.0, 0.0, [[] for _ in depths]
     for s in range(0, P, chunk):
         pts = torch.einsum("pij,cj->pci", R[s:s + chunk], cloud) + t[s:s + chunk, None, :]
         rel = pts[:, :, None, :] - centers
-        ok_xz = ((torch.abs(rel[..., 0]) - halves[:, 0] < margin)
-                 & (torch.abs(rel[..., 2]) - halves[:, 2] < margin) & mask[None, :, None])
-        q_y = torch.abs(rel[..., 1][..., None] - offs) - halves[:, 1, None]
-        hit = (ok_xz[..., None] & (q_y < margin)).any(dim=2)  # (B,C,A)
-        first = torch.where(hit.any(dim=1), hit.to(torch.uint8).argmax(dim=1), C)
-        need = torch.where((first < C).all(dim=1), first.amax(dim=1) + 1, C)  # (B,)
-        xz_cum = torch.cumsum(ok_xz.sum(dim=2), dim=1)  # (B,C)
+        ok_z = (torch.abs(rel[..., 2]) - halves[:, 2] < margin) & mask[None, :, None]
+        ok_y = torch.abs(rel[..., 1][..., None] - offs) - halves[:, 1, None] < margin
+        xz_any = torch.zeros_like(ok_z)
+        for d in range(D):
+            ok_xz = (torch.abs(pts[:, :, None, 0] - centers_x[d]) - halves[:, 0] < margin) & ok_z
+            xz_any |= ok_xz
+            hit = (ok_xz[..., None] & ok_y).any(dim=2)  # (B,C,A)
+            first = torch.where(hit.any(dim=1), hit.to(torch.uint8).argmax(dim=1), C)
+            need = torch.where((first < C).all(dim=1), first.amax(dim=1) + 1, C)  # (B,)
+            xz_cum = torch.cumsum(ok_xz.sum(dim=2), dim=1)  # (B,C)
+            xz_need = xz_cum.gather(1, (need - 1)[:, None])[:, 0]
+            ops_by_depth += float(need.sum()) * (18 + 4 * K) + float(xz_need.sum()) * 3 * A
+            needs[d].append(need)
+        need = torch.stack([n[-1] for n in needs]).amax(dim=0)
+        xz_cum = torch.cumsum(xz_any.sum(dim=2), dim=1)
         xz_need = xz_cum.gather(1, (need - 1)[:, None])[:, 0]
-        ops += float(need.sum()) * (18 + 4 * K) + float(xz_need.sum()) * 3 * A
-    return ops
+        ops += float(need.sum()) * (18 + K * (2 + 2 * D)) + float(xz_need.sum()) * 3 * A
+    return ops, ops_by_depth, [torch.cat(n) for n in needs]
 
 
-def measure_box_hits(name, collision, t_inv, cloud, mask, boxes, offsets, margin, hit_k=None):
+def lane_use(need: torch.Tensor, group: int) -> float:
+    """Share of lane-steps that do needed work when ``group`` consecutive
+    poses, one a thread, run until the slowest of them has all its bits:
+    sum(need) / sum(group x the group's max need)."""
+    pad = -need.numel() % group
+    g = torch.cat([need, need.new_zeros(pad)]).view(-1, group)
+    return float(need.sum()) / float(group * g.amax(dim=1).sum())
+
+
+def measure_box_hits(name, collision, t_inv, cloud, mask, boxes, offsets, depths, margin,
+                     hit_k=None):
     """Hold K1 against its plain version on these inputs (``hit_k``: a result
-    the kernel already gave for them), time both and work out the bound."""
-    P, C = t_inv.shape[0], cloud.shape[0]
+    the kernel already gave for them), time it and the plain version, and
+    work out the bound from what these inputs need (``box_hits_work``)."""
+    P, C, D, A = t_inv.shape[0], cloud.shape[0], len(depths), len(offsets)
+    args = (t_inv, cloud, mask, boxes, offsets, depths, margin)
     if hit_k is None:
-        hit_k = collision.box_hits(t_inv, cloud, mask, boxes, offsets, margin)
-    hit_p = collision.box_hits_plain(t_inv, cloud, mask, boxes, offsets, margin)
+        hit_k = collision.box_hits_depths(*args)
+    hit_p = collision.box_hits_depths_plain(*args)
     torch.cuda.synchronize()
-    if hit_k.shape != (P, len(offsets)) or hit_k.dtype != torch.bool:
+    if hit_k.shape != (P, D, A) or hit_k.dtype != torch.bool:
         fail(f"box_hits {name}: shape {tuple(hit_k.shape)} dtype {hit_k.dtype}")
     n_diff = int((hit_k != hit_p).sum())
     frac_hit = float(hit_p.float().mean())
-    ms, wrapper_ms, how = timed(
-        lambda: collision.box_hits(t_inv, cloud, mask, boxes, offsets, margin),
-        "box_hits_kernel")
-    plain_ms = cuda_ms(lambda: collision.box_hits_plain(t_inv, cloud, mask, boxes, offsets,
-                                                        margin), 3)
-    nbytes = P * 64 + C * 13 + P * len(offsets)
-    ops = box_hits_work(collision, t_inv, cloud, mask, boxes, offsets, margin)
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-    print(f"K1 box_hits [{name}] P={P} C={C} K={len(boxes)} A={len(offsets)}: "
-          f"{n_diff} of {hit_k.numel()} (pose, offset) entries differ from the plain "
+    ms, wrapper_ms, how = timed(lambda: collision.box_hits_depths(*args), "box_hits_kernel")
+    # the plain version ran just above: one timed call will do
+    plain_ms = cuda_ms(lambda: collision.box_hits_depths_plain(*args), 1, warm_up=False)
+    nbytes = P * 64 + C * 13 + P * D * A
+    ops, ops_by_depth, needs = box_hits_work(collision, t_inv, cloud, mask, boxes, offsets,
+                                             depths, margin)
+    use_warp = [lane_use(need, 32) for need in needs]
+    use_block = [lane_use(need, 256) for need in needs]
+    bound, _ = bound_of(ops, nbytes)
+    bound_by_depth, _ = bound_of(ops_by_depth, nbytes)
+    print(f"K1 box_hits [{name}] P={P} C={C} K={len(boxes)} A={A} D={D}, one launch: "
+          f"{n_diff} of {hit_k.numel()} (pose, depth, offset) entries differ from the plain "
           f"version (hit rate {frac_hit:.4f}); kernel {ms:.4f} ms ({how}), wrapper "
           f"{wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
-          f"({ops:.3e} ops, {nbytes:.3e} bytes)", flush=True)
+          f"({ops:.3e} ops, {nbytes:.3e} bytes; counted depth by depth as {D} single-depth "
+          f"launches would work: {bound_by_depth:.4f} ms, {ops_by_depth:.3e} ops); lane use of "
+          f"a one-thread-a-pose mapping without compaction, by depth: a warp "
+          f"{[round(u, 4) for u in use_warp]}, a 256-pose block "
+          f"{[round(u, 4) for u in use_block]}", flush=True)
     if n_diff > 1e-5 * hit_k.numel():
         fail(f"box_hits {name}: {n_diff} entries differ (limit 1e-5 of entries)")
     return {"n_diff": n_diff, "n_entries": hit_k.numel(), "ms": ms, "wrapper_ms": wrapper_ms,
-            "timing": how, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops}
+            "timing": how, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
+            "ops_by_depth": ops_by_depth, "lane_use_warp": float(np.mean(use_warp)),
+            "lane_use_block": float(np.mean(use_block))}
+
+
+def add_up(parts):
+    """The two launches of one filter call's gate, added up (lane use: the
+    mean)."""
+    res = {}
+    for one in parts:
+        for k, v in one.items():
+            res[k] = v if k == "timing" else res.get(k, 0) + v
+    for k in ("lane_use_warp", "lane_use_block"):
+        res[k] /= len(parts)
+    return res
 
 
 def bound_of(ops: float, nbytes: float):
     """(bound ms, what bounds it) from the operations and bytes of a call."""
     t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"
+
+
+def check_box_hits_variants(dev):
+    """Every compiled (boxes, offsets, depths) variant, and the variant with
+    run-time counts (3 offsets, 2 depths; 4 boxes x 8 offsets x 4 depths), on
+    a case ragged against the pose blocks and the point chunks, with poses
+    that hit everything and nothing, and on an all-masked cloud: exact."""
+    from catgrasp_tpu_torch.grasp import filter as gfilter
+    from catgrasp_tpu_torch.ops import collision
+    from catgrasp_tpu_torch.sim.env_grasp import GripperSpec
+
+    rng = np.random.default_rng(5)
+    n, c = 3001, 2500
+    T = random_poses(rng, n)
+    T[:, :3, 3] = rng.uniform(-0.08, 0.08, (n, 3))
+    T[:40, :3, 3] = 5.0  # far from every point: none-hit poses
+    t_inv = collision.pose_inverse_batch(torch.from_numpy(T).to(dev)).contiguous()
+    pts = rng.uniform(-0.3, 0.3, (c, 3)).astype(np.float32)
+    pts[:1500] = rng.uniform(-0.04, 0.04, (1500, 3))  # dense at the origin: all-hit poses
+    cloud = torch.from_numpy(pts).to(dev)
+    mask = torch.from_numpy(rng.uniform(size=c) > 0.2).to(dev)
+    spec = GripperSpec()
+    all_offsets = tuple(float(o) for o in gfilter.ADJUST_OFFSETS)
+    all_depths = tuple(float(d) for d in gfilter.DEPTH_OFFSETS)
+    open_boxes, closing_box = gfilter._static_open_boxes(spec), gfilter._static_enclosed_box(spec)
+    cases = [(boxes, offsets, depths) for boxes in (open_boxes, closing_box)
+             for offsets in (all_offsets, (0.0,)) for depths in (all_depths, (0.0,))]
+    cases += [(open_boxes, all_offsets[:3], all_depths[:2]),
+              (open_boxes + closing_box, all_offsets + (4e-3,), all_depths)]
+    n_cases = 0
+    for boxes, offsets, depths in cases:
+        for m in (mask, torch.zeros_like(mask)):
+            args = (t_inv, cloud, m, boxes, offsets, depths, 5e-4)
+            ref = collision.box_hits_depths_plain(*args)
+            got = collision.box_hits_depths(*args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, ref):
+                fail(f"box_hits variant K={len(boxes)} A={len(offsets)} D={len(depths)}: "
+                     f"{int((got != ref).sum())} entries differ")
+            n_cases += 1
+    args = (t_inv, cloud, mask, open_boxes, all_offsets, all_depths, 5e-4)
+    ref = collision.box_hits_depths_plain(*args)
+    all_hit = int(ref.all(dim=2).all(dim=1).sum())
+    none_hit = int((~ref.any(dim=2).any(dim=1)).sum())
+    print(f"K1 box_hits variants: {n_cases} cases (8 compiled variants and 2 sets of run-time "
+          f"counts x a masked and an all-masked cloud) at P={n}, C={c}: 0 entries differ; the "
+          f"open-gripper case "
+          f"has {all_hit} all-hit and {none_hit} none-hit poses", flush=True)
+    if all_hit == 0 or none_hit < 40:
+        fail("box_hits variants: the case lacks all-hit or none-hit poses")
 
 
 def check_box_hits(dev):
@@ -190,6 +303,7 @@ def check_box_hits(dev):
     T = torch.from_numpy(random_poses(rng, N_POSES)).to(dev)
     t_inv = collision.pose_inverse_batch(T).contiguous()
     offsets = tuple(float(o) for o in gfilter.ADJUST_OFFSETS)
+    depths = tuple(float(d) for d in gfilter.DEPTH_OFFSETS)
     spec, margin = GripperSpec(), 5e-4
     # the target's points in a 15 mm ball at the origin; the background a
     # 3 cm slab below it, as the occupancy fill makes it; poses within 5 cm
@@ -200,14 +314,46 @@ def check_box_hits(dev):
                            rng.uniform(-0.05, -0.02, (4096, 1))], axis=1)
     cases = [("open", ball, gfilter._static_open_boxes(spec)),
              ("enclosed", slab, gfilter._static_enclosed_box(spec))]
-    res = {}
+    parts = []
     for name, pts, boxes in cases:
         cloud = torch.from_numpy(pts.astype(np.float32)).to(dev)
         mask = torch.from_numpy(rng.uniform(size=len(pts)) > 0.05).to(dev)
-        one = measure_box_hits(name, collision, t_inv, cloud, mask, boxes, offsets, margin)
-        for k, v in one.items():  # the two clouds of a depth pair add up
-            res[k] = v if k == "timing" else res.get(k, 0) + v
-    return res
+        parts.append(measure_box_hits(name, collision, t_inv, cloud, mask, boxes, offsets,
+                                      depths, margin))
+    return add_up(parts)  # the two clouds of one filter call's gate
+
+
+def eval_gate(dev, scene, state, params):
+    """K1 on the eval path's own inputs: one more attempt on the settled pile
+    with the filter's two launches recorded, then both held against the plain
+    version and timed.  Returns the whole gate of one filter call, added up."""
+    from catgrasp_tpu_torch.ops import collision
+    from catgrasp_tpu_torch.pipelines import run_grasp_simulation as rgs
+
+    calls, entry = [], collision.box_hits_depths
+
+    def recorder(*args):
+        calls.append((args, entry(*args)))
+        return calls[-1][1]
+
+    collision.box_hits_depths = recorder
+    try:
+        rgs.oracle_cone_attempt(scene, state, params, np.random.default_rng(0),
+                                torch.Generator(device=dev).manual_seed(0))
+    finally:
+        collision.box_hits_depths = entry
+    if len(calls) < 2 or len(calls) % 2:
+        fail(f"the filter launched K1 {len(calls)} times: expected 2 a filter call")
+    parts = [measure_box_hits(f"eval path, {name}", collision, *args, hit_k=hit)
+             for name, (args, hit) in zip(("open gripper", "closing volume"), calls[-2:])]
+    gate = add_up(parts)
+    bound, _ = bound_of(gate["ops"], gate["bytes"])
+    bound_by_depth, _ = bound_of(gate["ops_by_depth"], gate["bytes"])
+    print(f"K1 box_hits, the whole gate of one filter call on the eval path's inputs (2 "
+          f"launches, 4 depths each): kernel {gate['ms']:.4f} ms, wrappers "
+          f"{gate['wrapper_ms']:.4f} ms, plain {gate['plain_ms']:.3f} ms, bound {bound:.4f} ms "
+          f"(counted depth by depth: {bound_by_depth:.4f} ms)", flush=True)
+    return gate
 
 
 # --------------------------------------------------------------------------
@@ -373,41 +519,94 @@ def _state_errors(a, b):
     return {f: (getattr(a, f) - getattr(b, f)).abs().amax(dim=-1)[act] for f in _STATE_FIELDS}
 
 
-def check_rollout(dev):
+def compare_rollout(pfr, label, st, par, lib, env, n, dt, fall_steps):
+    """Hold ``n`` kernel steps from ``st`` against the plain version: the
+    share of active bodies within 1e-4 m / 1e-3 quat / 1e-2 velocities (at
+    least 0.99), the largest errors, and the share of bodies that contact has
+    slowed below 0.9 of a ``fall_steps`` free fall."""
+    k = pfr.rollout_fused(st, par, lib, env, n, dt=dt)
+    p = pfr.rollout_fused_plain(st, par, lib, env, n, dt=dt)
+    torch.cuda.synchronize()
+    if not all(torch.isfinite(getattr(k, f)).all() for f in _STATE_FIELDS):
+        fail(f"rollout_fused [{label}] returned non-finite state after {n} steps")
+    if not all(torch.equal(getattr(k, f)[~k.active], getattr(st, f)[~k.active])
+               for f in _STATE_FIELDS):
+        fail(f"rollout_fused [{label}] moved an inactive body")
+    err = _state_errors(k, p)
+    within = ((err["pos"] < 1e-4) & (err["quat"] < 1e-3) & (err["linvel"] < 1e-2)
+              & (err["angvel"] < 1e-2))
+    frac = float(within.float().mean())
+    worst = {f: float(e.max()) for f, e in err.items()}
+    slowed = float((k.linvel[..., 2].abs() < 0.9 * 9.8 * fall_steps * dt)[k.active]
+                   .float().mean())
+    N, P = st.pos.shape[1], lib.surf_pts.shape[1]
+    print(f"K3 rollout_fused vs plain [{label}], {st.pos.shape[0]} scenes x {N} bodies x {P} "
+          f"points, {n} step(s): {frac:.5f} of {int(within.numel())} active bodies within "
+          f"1e-4 m / 1e-3 quat / 1e-2 velocities; max |err| {json.dumps(worst)}; "
+          f"{slowed:.3f} of bodies slowed by contact", flush=True)
+    if frac < 0.99:
+        fail(f"rollout_fused [{label}] disagrees with its plain version after {n} steps")
+    return frac, worst, slowed
+
+
+def rollout_regimes(dev, n_scenes=1024):
+    """The kernel's time for a 50-step call of ``n_scenes`` scenes in four
+    regimes: the entry point's own call (piles falling from the reset), the
+    same with the solver's iterations off, settled piles (the state after the
+    entry point's 250 steps) and a batch with every body active."""
     from catgrasp_tpu_torch.ops import fused_rollout as pfr
-    from catgrasp_tpu_torch.sim import engine
+    from catgrasp_tpu_torch.sim import env_pile
+
+    cfg, lib, env, states, params = bench_scene(dev, n_scenes)
+    settled = states
+    for _ in range(5):
+        settled = pfr.rollout_fused(settled, params, lib, env, 50, dt=cfg.dt)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    full_st, full_par = env_pile.reset_batch(gen, lib, cfg, n_scenes, n_objects=10)
+    regimes = {
+        "from_reset": lambda: pfr.rollout_fused(states, params, lib, env, 50, dt=cfg.dt),
+        "n_iter_0": lambda: pfr.rollout_fused(states, params, lib, env, 50, dt=cfg.dt, n_iter=0),
+        "settled": lambda: pfr.rollout_fused(settled, params, lib, env, 50, dt=cfg.dt),
+        "all_active": lambda: pfr.rollout_fused(full_st, full_par, lib, env, 50, dt=cfg.dt),
+    }
+    ms = {}
+    for name, call in regimes.items():
+        for _ in range(20):  # keep the card busy ahead of the short timed window
+            call()
+        k = kernel_ms(call, "fused_rollout_kernel", reps=10)
+        ms[name] = k if k is not None else cuda_ms(call, 10)
+    print(f"K3 rollout_fused kernel ms, {n_scenes} scenes x 50 steps: "
+          f"{json.dumps({k: round(v, 4) for k, v in ms.items()})}", flush=True)
+    return ms
+
+
+def check_rollout(dev, build_log: str):
+    from catgrasp_tpu_torch.ops import fused_rollout as pfr
+    from catgrasp_tpu_torch.sim import engine, env_pile
     from catgrasp_tpu_torch.sim.types import index_scenes
 
     cfg, lib, env, states, params = bench_scene(dev, 1024)
     N, P, M = states.pos.shape[1], lib.surf_pts.shape[1], env.center.shape[0]
+    S = lib.csg.types.shape[1]
     sl = slice(0, 128)
-    st128, par128 = index_scenes(states, sl), index_scenes(params, sl)
+    fresh, par128 = index_scenes(states, sl), index_scenes(params, sl)
     # the reset drops the piles from 6 cm up: fall 50 steps first, so that the
     # compared steps are contact steps
-    st128 = pfr.rollout_fused(st128, par128, lib, env, 50, dt=cfg.dt)
+    fallen = pfr.rollout_fused(states, params, lib, env, 50, dt=cfg.dt)
+    st128 = index_scenes(fallen, sl)
     res = {}
     for n in (1, 5):
-        k = pfr.rollout_fused(st128, par128, lib, env, n, dt=cfg.dt)
-        p = pfr.rollout_fused_plain(st128, par128, lib, env, n, dt=cfg.dt)
-        torch.cuda.synchronize()
-        if not all(torch.isfinite(getattr(k, f)).all() for f in _STATE_FIELDS):
-            fail(f"rollout_fused returned non-finite state after {n} steps")
-        err = _state_errors(k, p)
-        within = ((err["pos"] < 1e-4) & (err["quat"] < 1e-3) & (err["linvel"] < 1e-2)
-                  & (err["angvel"] < 1e-2))
-        frac = float(within.float().mean())
-        worst = {f: float(e.max()) for f, e in err.items()}
-        moving = float((k.linvel[..., 2].abs() < 0.9 * 9.8 * 50 * cfg.dt)[k.active].float().mean())
-        print(f"K3 rollout_fused vs plain, 128 scenes x {N} bodies x {P} points, {n} step(s): "
-              f"{frac:.5f} of {int(within.numel())} active bodies within 1e-4 m / 1e-3 quat / "
-              f"1e-2 velocities; max |err| {json.dumps(worst)}; {moving:.3f} of bodies slowed "
-              f"by contact", flush=True)
-        if frac < 0.99:
-            fail(f"rollout_fused disagrees with its plain version after {n} steps")
-        res[n] = (frac, worst)
+        res[n] = compare_rollout(pfr, "after 50 steps of fall", st128, par128, lib, env, n,
+                                 cfg.dt, 50)
     k50 = pfr.rollout_fused(st128, par128, lib, env, 50, dt=cfg.dt)
     k50b = pfr.rollout_fused(st128, par128, lib, env, 50, dt=cfg.dt)
-    p50 = pfr.rollout_fused_plain(st128, par128, lib, env, 50, dt=cfg.dt)
+    # the plain version takes seconds a call whatever the batch (it is bound
+    # by its launches), so its one 50-step call runs all 1,024 scenes and is
+    # the call that is timed; the check reads the first 128 of them
+    plain_out = []
+    plain_ms = cuda_ms(lambda: plain_out.append(
+        pfr.rollout_fused_plain(fallen, params, lib, env, 50, dt=cfg.dt)), 1, warm_up=False)
+    p50 = index_scenes(plain_out[0], sl)
     torch.cuda.synchronize()
     same = all(torch.equal(getattr(k50, f), getattr(k50b, f)) for f in _STATE_FIELDS)
     act = k50.active
@@ -425,24 +624,57 @@ def check_rollout(dev):
         fail("rollout_fused: 50-step settle (bodies below the floor, mean z within 1 mm) or "
              "determinism")
 
+    # a batch with no contact for the whole call (the solver is skipped): the
+    # first steps after the reset are free fall
+    _, _, slowed = compare_rollout(pfr, "no contact", fresh, par128, lib, env, 5, cfg.dt, 5)
+    if slowed != 0.0:
+        fail("rollout_fused: the no-contact batch had a contact")
+    # settled piles (dense contacts): the state after the entry point's 250 steps
+    settled = st128
+    for _ in range(4):
+        settled = pfr.rollout_fused(settled, par128, lib, env, 50, dt=cfg.dt)
+    for n in (1, 5):
+        _, _, slowed = compare_rollout(pfr, "settled", settled, par128, lib, env, n, cfg.dt, 50)
+        if slowed < 0.9:
+            fail("rollout_fused: the settled batch is not at rest")
+    # every body active: 10 of 10 in each scene
+    gen = torch.Generator(device=dev).manual_seed(0)
+    full_st, full_par = env_pile.reset_batch(gen, lib, cfg, 128, n_objects=10)
+    if not bool(full_st.active.all()):
+        fail("rollout_fused: the all-active batch has an inactive body")
+    full_st = pfr.rollout_fused(full_st, full_par, lib, env, 50, dt=cfg.dt)
+    compare_rollout(pfr, "every body active", full_st, full_par, lib, env, 5, cfg.dt, 50)
+
     # times and bound on the entry point's own call: 1,024 scenes x 50 steps
     call = lambda: pfr.rollout_fused(states, params, lib, env, 50, dt=cfg.dt)  # noqa: E731
     ms, wrapper_ms, how = timed(call, "fused_rollout_kernel")
+    regimes = rollout_regimes(dev)
     prep_ms = cuda_ms(lambda: pfr.prepare(states, params, lib, env), 10)
-    plain_ms = cuda_ms(lambda: pfr.rollout_fused_plain(states, params, lib, env, 50, dt=cfg.dt), 1)
-    engine_ms = cuda_ms(lambda: engine.rollout_batch(states, params, lib, env, 50, dt=cfg.dt), 1)
+    # the eager engine takes seconds a call: timed once (the plain version was
+    # timed above, on the same batch 50 steps on)
+    engine_ms = cuda_ms(lambda: engine.rollout_batch(states, params, lib, env, 50, dt=cfg.dt),
+                        1, warm_up=False)
     ops, nbytes, cb, ce = rollout_work(pfr, lib, env, states, params, 50, 4, cfg.dt)
     bound, bound_by = bound_of(ops, nbytes)
     print(f"K3 rollout_fused 1024 scenes x {N} bodies x {P} points x {N + M} colliders, 50 "
-          f"steps: kernel {ms:.4f} ms ({how}), wrapper {wrapper_ms:.4f} ms (of which the "
-          f"per-call gathers {prep_ms:.4f} ms), plain {plain_ms:.1f} ms, eager engine "
+          f"steps: kernel {ms:.4f} ms ({how}), wrapper {wrapper_ms:.4f} ms (the plain "
+          f"version's per-call gathers, now part of the kernel's staging, take {prep_ms:.4f} "
+          f"ms in PyTorch), plain {plain_ms:.1f} ms, eager engine "
           f"rollout_batch {engine_ms:.1f} ms, bound {bound:.4f} ms ({ops:.3e} ops, "
           f"{nbytes:.3e} bytes; {cb:.2f} body and {ce:.2f} env contacts a scene-step, "
           f"{float(states.active.float().sum(1).mean()):.2f} active bodies a scene)", flush=True)
+    foot = pfr.kernel_footprint(N, P, S, M)
+    regs = [ln.strip() for ln in build_log.splitlines() if "registers" in ln]
+    print(f"K3 rollout_fused footprint at these shapes: {foot['threads']} threads and "
+          f"{foot['smem_bytes']} bytes of shared memory a block, {foot['blocks_per_sm']} "
+          f"blocks an SM (occupancy calculator); block barriers a step: 2 without a body-body "
+          f"contact in the scene, else 1 + 2 x n_iter = 9; ptxas: "
+          f"{regs[-1] if regs else 'not printed'}",
+          flush=True)
     return {"max_abs_err": res[5][1]["pos"], "within_tol_frac": res[5][0], "ms": ms,
             "wrapper_ms": wrapper_ms, "prepare_ms": prep_ms, "timing": how,
             "plain_ms": plain_ms, "engine_ms": engine_ms, "bound_ms": bound,
-            "bound_by": bound_by,
+            "bound_by": bound_by, "regimes_ms": regimes, "footprint": foot,
             "shapes": f"1024 scenes x {N} bodies x {P} points x {N + M} colliders, 4 slots, "
                       f"50 steps"}
 
@@ -505,7 +737,9 @@ def bench_path(dev):
         fail("bench path: render output")
     # K1 and K2 at this path's own shapes: what the path computed, against the
     # plain versions on the path's inputs
-    k1 = measure_box_hits("bench path", collision, *keep["gate_inputs"], hit_k=hits)
+    t_inv, cloud, mask, boxes, offsets, margin = keep["gate_inputs"]
+    k1 = measure_box_hits("bench path", collision, t_inv, cloud, mask, boxes, offsets, (0.0,),
+                          margin, hit_k=hits[:, None, :])
     lib, states, params, K, cam, H, W, env = keep["render_inputs"]
     n_active = states.active.sum(dim=1)
     k2 = None
@@ -519,7 +753,9 @@ def bench_path(dev):
         "box_hits": {"shapes": "P=131072, C=2048, K=3 open boxes, A=7, margin 0",
                      "mismatch_frac": k1["n_diff"] / k1["n_entries"], "ms": k1["ms"],
                      "wrapper_ms": k1["wrapper_ms"], "plain_ms": k1["plain_ms"],
-                     "bound_ms": k1_bound, "bound_by": k1_by},
+                     "bound_ms": k1_bound, "bound_by": k1_by,
+                     "lane_use_warp": k1["lane_use_warp"],
+                     "lane_use_block": k1["lane_use_block"]},
         "march_csg": {k: k2[k] for k in ("shapes", "max_abs_err", "ms", "wrapper_ms", "plain_ms",
                                          "bound_ms", "bound_by")},
     }
@@ -569,7 +805,9 @@ def main_path(dev):
         fail("no segment yielded grasp candidates")
     if res.tried[-1]["n_candidates"] != N_POSES:
         fail(f"G={res.tried[-1]['n_candidates']}, expected {N_POSES}")
-    if launches["box_hits"] != 8 * len(res.tried):
+    print(f"K1 box_hits launches a filter call: "
+          f"{launches['box_hits'] / max(len(res.tried), 1):g}", flush=True)
+    if launches["box_hits"] != 2 * len(res.tried):
         fail(f"box_hits launched {launches['box_hits']} times for {len(res.tried)} filter calls")
     if launches["march_csg"] < 1:
         fail("march_csg was not launched on the main path")
@@ -635,7 +873,8 @@ def main() -> None:
                 print(f"  {name}: {line.strip()}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    k1 = check_box_hits(dev)
+    check_box_hits_variants(dev)
+    k1_random = check_box_hits(dev)
     scene, state, params, launches, times = main_path(dev)
     k2 = check_march("eval path", scene.lib, state, params, scene.K,
                      torch.as_tensor(scene.cam, device=dev), scene.H, scene.W, scene.env_bin)
@@ -653,10 +892,14 @@ def main() -> None:
                                                    torch.Generator(device=dev).manual_seed(0)),
                    times["render_s"] + times["occupancy_s"] + times["sample_filter_s"])
 
-    k3 = check_rollout(dev)
+    k1 = eval_gate(dev, scene, state, params)
+    k3 = check_rollout(dev, logs["fused_rollout"])
     bench_launches, at_bench = bench_path(dev)
 
     k1_bound, k1_by = bound_of(k1["ops"], k1["bytes"])
+    k1_by_depth, _ = bound_of(k1["ops_by_depth"], k1["bytes"])
+    random_bound, _ = bound_of(k1_random["ops"], k1_random["bytes"])
+    random_by_depth, _ = bound_of(k1_random["ops_by_depth"], k1_random["bytes"])
     kernels = [
         {"name": "box_hits", "route": "cuda", "source": "catgrasp_tpu_torch/csrc/box_hits.cu",
          "replaces": "catgrasp_tpu/ops/collision.py:81", "launches": launches["box_hits"],
@@ -664,8 +907,19 @@ def main() -> None:
          "max_abs_err": float(k1["n_diff"] > 0), "mismatch_frac": k1["n_diff"] / k1["n_entries"],
          "ms": k1["ms"], "wrapper_ms": k1["wrapper_ms"], "timing": k1["timing"],
          "plain_ms": k1["plain_ms"], "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": None,
-         "shapes": f"P={N_POSES}; C=512 (3 open boxes) + C=4096 (closing box); A=7",
+         "library_ms": None, "bound_ms_per_depth_sum": k1_by_depth,
+         "lane_use_warp": k1["lane_use_warp"], "lane_use_block": k1["lane_use_block"],
+         "shapes": f"the whole gate of one filter call on the eval path's own inputs: "
+                   f"P={N_POSES}, 2 launches (3 open boxes on the collision cloud, the closing "
+                   f"box on the background cloud), A=7, D=4",
+         "at_random_poses": {
+             "shapes": f"P={N_POSES}; C=512 (3 open boxes) + C=4096 (closing box); A=7, D=4",
+             "mismatch_frac": k1_random["n_diff"] / k1_random["n_entries"],
+             "ms": k1_random["ms"], "wrapper_ms": k1_random["wrapper_ms"],
+             "plain_ms": k1_random["plain_ms"], "bound_ms": random_bound,
+             "bound_ms_per_depth_sum": random_by_depth,
+             "lane_use_warp": k1_random["lane_use_warp"],
+             "lane_use_block": k1_random["lane_use_block"]},
          "at_bench_path": at_bench["box_hits"]},
         {"name": "march_csg", "route": "cuda", "source": "catgrasp_tpu_torch/csrc/march_csg.cu",
          "replaces": "catgrasp_tpu/ops/render_march.py:223", "launches": launches["march_csg"],
@@ -677,12 +931,13 @@ def main() -> None:
         {"name": "rollout_fused", "route": "cuda",
          "source": "catgrasp_tpu_torch/csrc/fused_rollout.cu",
          "replaces": "catgrasp_tpu/ops/fused_rollout.py:531",
-         "launches": bench_launches["rollout_fused"],
+         "launches": launches["rollout_fused"],
          "launches_bench_path": bench_launches["rollout_fused"],
          "max_abs_err": k3["max_abs_err"], "within_tol_frac": k3["within_tol_frac"],
          "ms": k3["ms"], "wrapper_ms": k3["wrapper_ms"], "prepare_ms": k3["prepare_ms"],
          "timing": k3["timing"], "plain_ms": k3["plain_ms"], "engine_ms": k3["engine_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
+         "regimes_ms": k3["regimes_ms"], "footprint": k3["footprint"],
          "shapes": k3["shapes"]},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -235,3 +235,75 @@ def test_tall_column_tunnels_the_floor_alike():
     np.testing.assert_array_equal(zp < -0.02, zj < -0.02)
     # the bodies that stayed rest on the floor in both
     np.testing.assert_allclose(zp[zp > -0.02].mean(), zj[zj > -0.02].mean(), atol=0.01)
+
+
+@pytest.mark.parametrize("cls", ["nut", "screw", "hnm", "fixtures"])
+def test_bound_radius_holds_every_point_inside_the_csg(cls):
+    """The kernel skips a point outside a body's bounding sphere, so the
+    sphere must hold every point of negative CSG distance: by the port's
+    evaluator and by the JAX package's, for every instance of the class (and
+    the three place fixtures), at several scales."""
+    from catgrasp_tpu_torch.geom import csg as pcsg
+    from catgrasp_tpu_torch.geom.primitives import _SPLITS
+
+    if cls == "fixtures":
+        pshapes = [pcsg.csg_place_fixture(c) for c in ("nut", "screw", "hnm")]
+        jshapes = [jcsg.csg_place_fixture(c) for c in ("nut", "screw", "hnm")]
+    else:
+        specs = [(split, k) for split in ("train", "test")
+                 for k in range(len(_SPLITS[(cls, split)]))]
+        pshapes = [pcsg.make_csg_instance(cls, s, k) for s, k in specs]
+        jshapes = [jcsg.make_csg_instance(cls, s, k) for s, k in specs]
+    radius = t2n(pfr.csg_bound_radius(pcsg.stack_shapes(pshapes)))
+    rng = np.random.default_rng(11)
+    n_inside = 0
+    for k, (ps, js) in enumerate(zip(pshapes, jshapes)):
+        assert radius[k] > 0
+        for scale in (0.7, 1.0, 1.45):
+            # world points around the body, a quarter of them near the sphere
+            p = rng.uniform(-1.3, 1.3, (4000, 3)) * radius[k] * scale
+            d = rng.normal(size=(1000, 3))
+            p[:1000] = d / np.linalg.norm(d, axis=1, keepdims=True) * radius[k] * scale \
+                * rng.uniform(0.9, 1.1, (1000, 1))
+            p = p.astype(np.float32)
+            loc = torch.from_numpy(p / np.float32(scale))
+            d_port = pfr.csg_evaln(loc[:, 0], loc[:, 1], loc[:, 2], ps.types[:, None],
+                                   ps.ops[:, None], ps.params[:, :, None],
+                                   ps.offsets[:, :, None])[0]
+            d_jax = np.asarray(jcsg.csg_sdf(js, jnp.asarray(p / np.float32(scale))))
+            inside = (t2n(d_port) < 0) | (d_jax < 0)
+            n_inside += int(inside.sum())
+            # the kernel's sphere is 0.1% and 1 um wider still
+            assert (np.linalg.norm(p[inside], axis=1) <= radius[k] * scale).all(), (cls, k, scale)
+    assert n_inside > 100
+    # and the sphere is not idle: the farthest inside point comes close to it
+    assert radius.max() < 0.1
+
+
+def test_stage_plain_equals_prepare(setup):
+    """The kernel gathers by shape id while it stages a scene; its staging
+    written out in PyTorch gives ``prepare``'s tables exactly."""
+    _, _, _, _, _, _, (plib, penv, _, plow, pparams) = setup
+    mass = pparams.mass.clone()
+    mass[1, 0] = 1e9  # a static body: no inverse mass or inertia
+    pparams = pparams.replace(mass=mass)
+    full = pfr.prepare(plow, pparams, plib, penv)
+    for scene in (0, 1, 5):
+        one = pfr.stage_plain(plow, pparams, plib, penv, scene)
+        for f in ("body", "surf", "csg_i", "csg_f"):
+            assert torch.equal(getattr(one, f)[0], getattr(full, f)[scene]), (scene, f)
+        assert torch.equal(one.env, full.env)
+    assert (full.body[1, 0, 2:6] == 0).all() and not plow.active.all()
+    # a rotated and a disabled env box: the rotation to f32 rounding (the sum
+    # of four squares may be taken in another order), the rest exactly
+    quat = penv.quat.clone()
+    quat[1] = torch.tensor([0.8, 0.3, -0.4, 0.33])
+    enabled = penv.enabled.clone()
+    enabled[2] = False
+    env2 = penv.replace(quat=quat, enabled=enabled, vel=penv.vel + 0.1)
+    one, full = pfr.stage_plain(plow, pparams, plib, env2, 0), pfr.prepare(plow, pparams, plib,
+                                                                           env2)
+    np.testing.assert_allclose(t2n(one.env), t2n(full.env), atol=2e-7)
+    assert torch.equal(one.env[:, :6], full.env[:, :6])
+    assert torch.equal(one.env[:, 15:], full.env[:, 15:])
+    assert (one.env[2, :3] == 1e6).all() and (one.env[2, 15:18] == 0).all()

@@ -106,6 +106,7 @@ def test_cuda_tensors_launch_the_kernels(monkeypatch):
         raise AssertionError("plain version taken for CUDA tensors")
 
     monkeypatch.setattr(collision, "box_hits_plain", no_plain)
+    monkeypatch.setattr(collision, "box_hits_depths_plain", no_plain)
     monkeypatch.setattr(render_march, "march_csg_plain", no_plain)
     monkeypatch.setattr(fused_rollout, "rollout_fused_plain", no_plain)
     build.build_all()

@@ -31,7 +31,7 @@ def dev():
 
 def test_box_hits_kernel_matches_plain(dev):
     rng = np.random.default_rng(0)
-    n, c = 3001, 2500  # ragged against the 256-pose blocks and 1,024-point tiles
+    n, c = 3001, 2500  # ragged against the pose blocks and the point chunks
     q = torch.from_numpy(rng.normal(size=(n, 4)).astype(np.float32))
     T = torch.zeros((n, 4, 4))
     from catgrasp_tpu_torch.core import transforms as tf
@@ -61,8 +61,55 @@ def test_box_hits_rejects_bad_inputs(dev):
         collision.box_hits(t_inv, cloud.double(), mask, boxes, (0.0,), 5e-4)
     with pytest.raises(ValueError):
         collision.box_hits(t_inv, cloud[:, :2], mask, boxes, (0.0,), 5e-4)
-    with pytest.raises(RuntimeError):
+    # at most 4 boxes, 8 offsets and 4 depths
+    with pytest.raises(ValueError, match="9 offsets"):
         collision.box_hits(t_inv, cloud, mask, boxes, tuple([0.0] * 9), 5e-4)
+    with pytest.raises(ValueError, match="5 boxes"):
+        collision.box_hits(t_inv, cloud, mask, boxes * 5, (0.0,), 5e-4)
+    with pytest.raises(ValueError, match="5 depths"):
+        collision.box_hits_depths(t_inv, cloud, mask, boxes, (0.0,), tuple([0.0] * 5), 5e-4)
+
+
+@pytest.mark.parametrize("which,n_offsets,n_depths", [
+    *((w, a, d) for w in ("open", "enclosed") for a in (1, 7) for d in (1, 4)),  # compiled counts
+    ("open", 3, 2), ("enclosed", 3, 2), ("both", 8, 4),  # run-time counts; every bit of the mask
+])
+def test_box_hits_every_variant_matches_plain_exactly(dev, which, n_offsets, n_depths):
+    """Each (boxes, offsets, depths) variant compiled with its counts, and
+    counts that take the variant with run-time counts (up to the most: 4
+    boxes x 8 offsets x 4 depths), on a case ragged against the pose blocks
+    and the 128-point chunks, with all-hit and none-hit poses, and an
+    all-masked cloud."""
+    rng = np.random.default_rng(5)
+    n, c = 3001, 2500
+    q = torch.from_numpy(rng.normal(size=(n, 4)).astype(np.float32))
+    T = torch.zeros((n, 4, 4))
+    from catgrasp_tpu_torch.core import transforms as tf
+    T[:, :3, :3] = tf.quat_to_matrix(q)
+    T[:, :3, 3] = torch.from_numpy(rng.uniform(-0.08, 0.08, (n, 3)).astype(np.float32))
+    T[:40, :3, 3] = 5.0  # none-hit poses
+    T[:, 3, 3] = 1.0
+    t_inv = collision.pose_inverse_batch(T.to(dev)).contiguous()
+    pts = rng.uniform(-0.3, 0.3, (c, 3)).astype(np.float32)
+    pts[:1500] = rng.uniform(-0.04, 0.04, (1500, 3))  # dense at the origin: all-hit poses
+    cloud = torch.from_numpy(pts).to(dev)
+    mask = torch.from_numpy(rng.uniform(size=c) > 0.2).to(dev)
+    spec = GripperSpec()
+    boxes = {"open": gfilter._static_open_boxes(spec),
+             "enclosed": gfilter._static_enclosed_box(spec),
+             "both": gfilter._static_open_boxes(spec) + gfilter._static_enclosed_box(spec)}[which]
+    offsets = (OFFSETS + (4e-3,))[:n_offsets]
+    depths = tuple(float(d) for d in gfilter.DEPTH_OFFSETS[:n_depths])
+    n0 = collision.box_hits.launches
+    k = collision.box_hits_depths(t_inv, cloud, mask, boxes, offsets, depths, 5e-4)
+    p = collision.box_hits_depths_plain(t_inv, cloud, mask, boxes, offsets, depths, 5e-4)
+    torch.cuda.synchronize()
+    assert collision.box_hits.launches == n0 + 1
+    assert k.shape == (n, n_depths, n_offsets) and k.dtype == torch.bool
+    assert torch.equal(k, p)
+    assert not p[:40].any() and p.all(dim=2).all(dim=1).any() and 0 < int(p.sum()) < p.numel()
+    none = torch.zeros_like(mask)
+    assert not collision.box_hits_depths(t_inv, cloud, none, boxes, offsets, depths, 5e-4).any()
 
 
 def test_march_kernel_matches_plain(dev):
@@ -150,6 +197,48 @@ def test_rollout_kernel_matches_plain(dev, specs, n_surf, max_bodies, batch):
     one = fused_rollout.rollout_fused(index_scenes(states, slice(2, 3)),
                                       index_scenes(params, slice(2, 3)), lib, env, 30, dt=cfg.dt)
     assert torch.equal(one.pos[0], a.pos[2])
+
+
+def _within(k, p):
+    act = k.active
+    err = {f: (getattr(k, f) - getattr(p, f)).abs().amax(dim=-1)[act] for f in FIELDS}
+    return ((err["pos"] < 1e-4) & (err["quat"] < 1e-3) & (err["linvel"] < 1e-2)
+            & (err["angvel"] < 1e-2)).float().mean().item()
+
+
+def test_rollout_kernel_on_no_contact_settled_and_all_active_batches(dev):
+    """The regimes the kernel treats apart: a call with no contact at all
+    (the solver is skipped), settled piles (dense contacts, more than the two
+    a thread keeps) and scenes with every body active (no warp leaves)."""
+    specs = (("nut", 0), ("screw", 0), ("hnm", 0), ("nut", 3))
+    cfg, lib, env, fresh, params = _pile_batch(dev, specs, 32, 10, 64, 0)
+    args = (params, lib, env)
+    # no contact: the first steps after the reset are free fall
+    k = fused_rollout.rollout_fused(fresh, *args, 5, dt=cfg.dt)
+    p = fused_rollout.rollout_fused_plain(fresh, *args, 5, dt=cfg.dt)
+    free = 9.8 * 5 * cfg.dt
+    assert (k.linvel[..., 2].abs() > 0.9 * free)[k.active].all()
+    assert _within(k, p) == 1.0
+    assert torch.equal(k.pos[~k.active], fresh.pos[~k.active])
+    # settled: 250 steps on, nearly every body at rest
+    settled = fused_rollout.rollout_fused(fresh, *args, 250, dt=cfg.dt)
+    assert (settled.linvel[..., 2].abs() < 0.1)[settled.active].float().mean().item() > 0.9
+    for n_steps in (1, 5):
+        k = fused_rollout.rollout_fused(settled, *args, n_steps, dt=cfg.dt)
+        p = fused_rollout.rollout_fused_plain(settled, *args, n_steps, dt=cfg.dt)
+        assert _within(k, p) >= 0.99
+    # every body active
+    gen = torch.Generator(device=dev).manual_seed(1)
+    full, fpar = env_pile.reset_batch(gen, lib, cfg, 32, n_objects=10)
+    assert full.active.all()
+    full = fused_rollout.rollout_fused(full, fpar, lib, env, 60, dt=cfg.dt)
+    k = fused_rollout.rollout_fused(full, fpar, lib, env, 5, dt=cfg.dt)
+    p = fused_rollout.rollout_fused_plain(full, fpar, lib, env, 5, dt=cfg.dt)
+    torch.cuda.synchronize()
+    assert _within(k, p) >= 0.99
+    # no steps: the state comes back as it went in
+    same = fused_rollout.rollout_fused(settled, *args, 0, dt=cfg.dt)
+    assert all(torch.equal(getattr(same, f), getattr(settled, f)) for f in FIELDS)
 
 
 def test_rollout_kernel_settles_and_keeps_static_bodies(dev):
