@@ -2,9 +2,10 @@
 (``catgrasp_tpu/render/raymarch.py`` in PyTorch, CSG geometry).
 
 Sphere tracing with a fixed step budget through the analytic CSG scene.
-The march is ``ops.render_march.march_csg``: kernel K2 on the GPU, its plain
-version on the CPU.  The label passes (seg, depth, NUNOCS, normals, xyz)
-evaluate the scene once more at the converged points.
+The march is ``ops.render_march.march_csg_batch``: kernel K2 on the GPU, one
+launch a batch of scenes, its plain version on the CPU.  The label passes
+(seg, depth, NUNOCS, normals, xyz) evaluate the scene once more at the
+converged points.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from ..core import transforms as tf
 from ..geom import csg as csglib
 from ..ops import render_march as rm
 from ..sim.engine import StaticEnv
-from ..sim.types import SceneParams, SceneState, ShapeLib, index_scenes
+from ..sim.types import SceneParams, SceneState, ShapeLib, as_batch, index_scenes
 
 HIT_EPS = 2e-4
 
@@ -45,17 +46,11 @@ def render(lib: ShapeLib, state: SceneState, params: SceneParams,
     """Render one scene -> dict of (H, W[, C]) images:
     depth (z in cam frame, 0 = invalid), seg (int32: body index, -2 env,
     -1 background), nocs (NUNOCS coords in [0,1], 0 outside objects),
-    normal (cam frame, oriented toward the camera), xyz (cam frame), rgb."""
-    if geometry != "csg":
-        raise NotImplementedError("only CSG geometry is ported; baked grids come later")
-    dev = state.pos.device
-    K = torch.as_tensor(K, dtype=torch.float32, device=dev)
-    cam_in_world = torch.as_tensor(cam_in_world, dtype=torch.float32, device=dev)
-    env = env if (with_env and env is not None) else None
-    o_w, d_w, d_cam, tmax = camera_rays(K, cam_in_world, H, W, zfar)
-    t = rm.march_csg(lib, state, params, o_w, d_w, tmax, env=env,
-                     n_steps=n_steps, hit_eps=HIT_EPS)
-    return shade(lib, state, params, cam_in_world, H, W, env, d_w, d_cam, tmax, t)
+    normal (cam frame, oriented toward the camera), xyz (cam frame), rgb.
+    The one-scene case of ``render_batch``."""
+    out = render_batch(lib, as_batch(state), as_batch(params), K, cam_in_world, H, W, env=env,
+                       zfar=zfar, n_steps=n_steps, with_env=with_env, geometry=geometry)
+    return {k: v[0] for k, v in out.items()}
 
 
 def shade(lib: ShapeLib, state: SceneState, params: SceneParams,
@@ -128,17 +123,29 @@ def shade(lib: ShapeLib, state: SceneState, params: SceneParams,
 
 def render_batch(lib: ShapeLib, states: SceneState, params: SceneParams, K, cam_in_world,
                  H: int, W: int, env: StaticEnv | None = None,
-                 scene_chunk: int | None = None) -> dict:
+                 scene_chunk: int | None = None, zfar: float = 3.0, n_steps: int = 64,
+                 with_env: bool = True, geometry: str = "csg") -> dict:
     """Render a scene batch (leading axis of states/params) -> dict of
-    (B, H, W[, C]) images.
+    (B, H, W[, C]) images, as ``render`` gives them for each scene.
 
-    Scenes are rendered one after another (one march launch a scene), so peak
-    memory is one frame's whatever the batch.  ``scene_chunk`` keeps the JAX
-    signature, where it bounds memory by running sub-batches in sequence; it
-    must divide the batch and changes nothing else here."""
+    The whole batch is marched in one launch (``march_csg_batch``), as the
+    JAX package vmaps it into one ``pallas_call``; the label passes then run
+    scene by scene, so their peak memory is one frame's whatever the batch.
+    ``scene_chunk`` keeps the JAX signature, where it bounds memory by
+    running sub-batches in sequence; it must divide the batch and changes
+    nothing else here."""
+    if geometry != "csg":
+        raise NotImplementedError("only CSG geometry is ported; baked grids come later")
     B = states.pos.shape[0]
     if scene_chunk is not None and scene_chunk < B and B % scene_chunk:
         raise ValueError(f"scene_chunk {scene_chunk} must divide batch {B}")
-    outs = [render(lib, index_scenes(states, b), index_scenes(params, b), K, cam_in_world,
-                   H, W, env=env) for b in range(B)]
+    dev = states.pos.device
+    K = torch.as_tensor(K, dtype=torch.float32, device=dev)
+    cam_in_world = torch.as_tensor(cam_in_world, dtype=torch.float32, device=dev)
+    env = env if (with_env and env is not None) else None
+    o_w, d_w, d_cam, tmax = camera_rays(K, cam_in_world, H, W, zfar)
+    t = rm.march_csg_batch(lib, states, params, o_w, d_w, tmax, env=env, n_steps=n_steps,
+                           hit_eps=HIT_EPS, hw=(H, W))
+    outs = [shade(lib, index_scenes(states, b), index_scenes(params, b), cam_in_world, H, W,
+                  env, d_w, d_cam, tmax, t[b]) for b in range(B)]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

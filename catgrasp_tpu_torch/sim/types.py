@@ -163,6 +163,12 @@ def stack_scenes(scenes: list):
                   for f in fields(cls)})
 
 
+def as_batch(scene):
+    """A one-scene ``SceneState`` or ``SceneParams`` as a batch of one
+    (views of its tensors)."""
+    return type(scene)(**{f.name: getattr(scene, f.name)[None] for f in fields(scene)})
+
+
 def index_scenes(batch, idx):
     """Scene ``idx`` (an int, a slice or an index tensor) of a batched
     ``SceneState`` or ``SceneParams``."""

@@ -18,7 +18,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    and the filter — with every kernel's launch count set to 0 just before
    and read just after;
 5. kernel K2 ``march_csg`` against its plain version on that settled
-   scene at 384x512: agreement, times, bound;
+   scene at 384x512: agreement, its cull lists against the plain cull, that
+   one call queues the kernel and nothing else (torch.profiler), the render
+   stage split into march and label passes, times, the bound from the bodies
+   each ray's line meets beside the bounds over what a tile's cull keeps,
+   where the kernel's time goes (its prologue alone, step budgets, no env
+   boxes), and the tried tiles;
 6. a device-time profile (torch.profiler) of 20 settle steps and of one
    attempt, by kernel; the attempt's own collision-gate inputs are recorded
    and K1 is held against its plain version and timed on them (the whole
@@ -30,10 +35,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    active;
 8. the second path, once, at full width: ``catgrasp_tpu_torch.bench`` (1,024
    scenes x 5 calls of 50 steps through K3 and once through the eager engine;
-   the collision gate through K1; the IK gate; 8 x 9 frames through K2) —
-   again with every launch count set to 0 just before and read just after;
-   then K1 and K2 against their plain versions at that path's own shapes:
-   the hit matrix and two of the frames it computed, on its own inputs;
+   the collision gate through K1; the IK gate; 9 batches of 8 frames through
+   K2, one launch a batch) — again with every launch count set to 0 just
+   before and read just after; then K1 and K2 against their plain versions
+   at that path's own shapes: the hit matrix and two of the frames it
+   computed, on its own inputs; K2's batch against each scene marched alone,
+   its cull lists, times and tried tiles;
 9. K3's times on the 1,024-scene, 50-step call (kernel, wrapper, plain
    version, eager engine) and its bound from that call's own contacts; the
    kernel's time with the iterations off, on settled piles and with every
@@ -360,24 +367,31 @@ def eval_gate(dev, scene, state, params):
 # K2 march_csg
 # --------------------------------------------------------------------------
 
-# ops of one slot's primitive SDF as the kernel writes it, plus 5 for the
-# slot offset and the union/subtract combine (csrc/march_csg.cu)
-_SLOT_OPS = {1: 20 + 5, 2: 16 + 5, 3: 36 + 5}
+# ops of one slot's primitive SDF as the kernel writes it (box 20, cylinder
+# 18, hex prism 40), plus 5 for the slot offset and the union/subtract
+# combine (csrc/march_csg.cu:scene_phi)
+_SLOT_OPS = {1: 20 + 5, 2: 18 + 5, 3: 40 + 5}
 _BODY_OPS = 23  # move the point into the body frame, scale, min-combine
 _ENV_OPS = 39  # one env box: move into its frame, box SDF, min
 _STEP_OPS = 11  # ray point (3 FMA) and the step update
+# the tiles tried (rows, columns), one ray a thread; 1 x 256 is a 256-ray strip
+_MARCH_VARIANTS = [(8, 8), (8, 16), (16, 8), (16, 16), (8, 32), (32, 8), (1, 256)]
 
 
-def march_work(rm, lib, state, params, o_w, d_w, tmax, env, n_steps, hit_eps):
-    """Operations this run's data needs: each ray evaluates the scene at
-    every step until it converges, over the bodies its tile's cull kept and
-    the enabled env boxes (step counts from the plain march's rule)."""
+def march_work(rm, lib, state, params, o_w, d_w, tmax, env, n_steps, hit_eps, hw):
+    """Operations this run's data needs.  Each ray evaluates the scene at
+    every step until it converges (step counts from the plain march's rule);
+    ``need`` counts at each step the bodies whose bounding sphere (radius +
+    1e-3) the ray's own line meets and the enabled env boxes, the least any
+    conservative cull can leave; ``strip`` the bodies the cull of the ray's
+    256-ray strip keeps (the tile of the kernel's first design), ``tile``
+    those the cull of the kernel's own tile keeps."""
     P = d_w.shape[0]
     t = torch.full((P,), 0.05, device=d_w.device)
     done = torch.zeros((P,), dtype=torch.bool, device=d_w.device)
-    evals = torch.zeros((P,), device=d_w.device)
+    evals = torch.zeros((P,), dtype=torch.float64, device=d_w.device)
     for _ in range(n_steps):
-        evals += (~done).float()
+        evals += (~done).double()
         x = o_w + t[:, None] * d_w
         phi = torch.minimum(torch.amin(rm.scene_sdf(lib, state, params, x)[0], dim=-1),
                             rm.env_sdf(env, x))
@@ -385,31 +399,124 @@ def march_work(rm, lib, state, params, o_w, d_w, tmax, env, n_steps, hit_eps):
         t = torch.where(done | newly, t, torch.minimum(t + torch.clamp(phi, min=hit_eps / 2),
                                                        tmax))
         done = done | newly | (t >= tmax)
-    types = lib.csg.types[params.shape_id].cpu().numpy()
-    body_ops = np.array([_BODY_OPS + sum(_SLOT_OPS.get(int(c), 0) for c in row)
-                         for row in types], np.float64)
-    n_tiles = -(-P // rm.TILE)
-    pad = n_tiles * rm.TILE - P
-    d_pad = torch.cat([d_w, d_w[-1:].expand(pad, 3)]) if pad else d_w
+    types = lib.csg.types[params.shape_id]
+    body_ops = torch.full(types.shape[:1], float(_BODY_OPS), dtype=torch.float64,
+                          device=d_w.device)
+    for code, ops in _SLOT_OPS.items():
+        body_ops += (types == code).sum(dim=-1).double() * ops
+    fixed = _STEP_OPS + _ENV_OPS * int(env.enabled.sum())
     radius_w = lib.radius[params.shape_id] * params.scale
-    visidx, visn = rm.tile_visibility(o_w, d_pad, state.pos, radius_w, state.active)
-    visidx, visn = visidx.cpu().numpy(), visn.cpu().numpy()
-    tile_ops = np.array([body_ops[visidx[k, :visn[k]]].sum() for k in range(n_tiles)])
-    per_ray = np.repeat(tile_ops, rm.TILE)[:P] + _STEP_OPS \
-        + _ENV_OPS * int(env.enabled.sum())
-    return float((evals.cpu().numpy() * per_ray).sum())
+    c = state.pos - o_w
+    along = d_w @ c.T  # (P, N)
+    perp2 = (c * c).sum(dim=-1) - along * along
+    meets = (perp2 <= (radius_w + 1e-3) ** 2) & state.active
+    work = {"need": float((evals * (meets.double() @ body_ops + fixed)).sum())}
+    for key, tile in (("strip", (1, rm.TILE)), ("tile", None)):
+        geo = (None, tile) if key == "strip" else (hw, None)
+        visidx, visn = rm.tile_visibility(o_w, d_w, state.pos, radius_w, state.active, *geo)
+        kept = torch.arange(visidx.shape[-1], device=d_w.device) < visn[:, None]
+        tile_ops = (body_ops[visidx.long()] * kept).sum(dim=-1)
+        H, W, th, tw = rm.tile_geometry(P, *geo)
+        idx, valid = rm.tile_rays(H, W, th, tw, d_w.device)
+        per_ray = torch.zeros((P,), dtype=torch.float64, device=d_w.device)
+        per_ray[idx[valid]] = tile_ops[:, None].expand_as(idx)[valid]
+        work[key] = float((evals * (per_ray + fixed)).sum())
+    return work
+
+
+def march_variants(lib, states, params, o_w, d_w, tmax, env, hw):
+    """Kernel ms of the tried tiles on these inputs (one launch each, a batch
+    of scenes if ``states`` has one), keyed "rows x columns"; None where the
+    profiler's trace lost the tile's launches."""
+    from catgrasp_tpu_torch.ops import render_march as rm
+    ms = {}
+    for th, tw in _MARCH_VARIANTS:
+        def call(th=th, tw=tw):
+            return rm._march(lib, states, params, o_w, d_w, tmax, env=env, hw=hw, tile=(th, tw))
+        ms[f"{th}x{tw}"] = kernel_ms(call, "march_csg_kernel")
+    return ms
+
+
+def march_breakdown(lib, states, params, o_w, d_w, tmax, env, hw):
+    """Where the kernel's time goes on these inputs, kernel ms: the block
+    prologue alone (the cull launch), the march with a step budget of 0, 1,
+    4, 16 and 64, and at 64 steps without the env boxes."""
+    from catgrasp_tpu_torch.ops import render_march as rm
+    calls = {"cull_only": (lambda: rm.tile_visibility_kernel(lib, states, params, o_w, d_w,
+                                                             hw=hw), "march_csg_cull_kernel")}
+    for n in (0, 1, 4, 16, 64):
+        calls[f"steps_{n}"] = (lambda n=n: rm.march_csg_batch(lib, states, params, o_w, d_w, tmax,
+                                                              env=env, n_steps=n, hw=hw),
+                               "march_csg_kernel")
+    calls["steps_64_no_env"] = (lambda: rm.march_csg_batch(lib, states, params, o_w, d_w, tmax,
+                                                           hw=hw), "march_csg_kernel")
+    return {k: kernel_ms(fn, name) for k, (fn, name) in calls.items()}
+
+
+def check_cull_lists(label, rm, lib, states, params, o_w, d_w, hw):
+    """The kernel's cull lists (a launch of its block prologue alone) against
+    the plain ``tile_visibility`` with the same tiles: a body may fall on the
+    other side only within 1e-5 of the threshold.  Returns the number of
+    (scene, tile) lists that differ and the number of lists."""
+    vk, nk = rm.tile_visibility_kernel(lib, states, params, o_w, d_w, hw=hw)
+    radius_w = lib.radius[params.shape_id] * params.scale
+    vp, np_ = rm.tile_visibility(o_w, d_w, states.pos, radius_w, states.active, hw)
+    margin, inside = rm.cull_margin(o_w, d_w, states.pos, radius_w, hw)
+    N = vk.shape[-1]
+    body = torch.arange(N, device=d_w.device)
+    in_k = (vk.long()[..., None] == body).any(dim=-2)
+    listed_p = torch.where(body < np_[..., None], vp, -1)
+    in_p = (listed_p.long()[..., None] == body).any(dim=-2)
+    differ = in_k != in_p
+    near = (margin + 1e-4).abs() < 1e-5
+    n_lists = int(differ.any(dim=-1).sum())
+    # in index order, -1 past the count
+    ordered = bool(((vk[..., 1:] > vk[..., :-1]) | (vk[..., 1:] < 0)).all()) and bool(
+        torch.equal(vk >= 0, body < nk[..., None]))
+    print(f"K2 cull lists [{label}]: {n_lists} of {nk.numel()} (scene, tile) lists differ from "
+          f"the plain cull, all within 1e-5 of the threshold: {bool((~differ | near).all())}; "
+          f"kept bodies a tile, mean {float(nk.float().mean()):.3f}, max {int(nk.max())}",
+          flush=True)
+    if not bool((~differ | near).all()) or not ordered:
+        fail(f"march_csg [{label}]: the kernel's cull lists disagree with the plain cull")
+    return n_lists, int(nk.numel())
+
+
+def one_launch(call, reps: int = 5):
+    """What one call queues on the device, from torch.profiler over ``reps``
+    calls: (the CUDA API calls that queue work, made inside
+    each call; the device activities of the whole window).  The trace may
+    drop device records, so the runtime calls are read per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            with record_function(f"one_call_{i}"):
+                call()
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name.startswith("one_call_") and e.device_type == DeviceType.CPU)
+    queued = [[e.name for e in events if e.device_type == DeviceType.CPU
+               and any(w in e.name for w in ("Launch", "Memcpy", "Memset"))
+               and lo <= e.time_range.start <= hi] for lo, hi in spans]
+    device = [e.name for e in events if e.device_type == DeviceType.CUDA
+              and not e.name.startswith("one_call_")]  # less the calls' own annotations
+    return queued, device
 
 
 def check_march(label, lib, state, params, K, cam, H, W, env, frame=None):
     """Hold K2 against its plain version on this scene, time both and work
-    out the bound.  ``frame``: the images a path rendered of this scene
+    out the bounds.  ``frame``: the images a path rendered of this scene
     through the kernel; they are what is compared where given."""
     from catgrasp_tpu_torch.ops import render_march as rm
     from catgrasp_tpu_torch.render import raymarch
 
     o_w, d_w, d_cam, tmax = raymarch.camera_rays(K, cam, H, W)
     kw = dict(env=env, n_steps=64, hit_eps=raymarch.HIT_EPS)
-    t_k = rm.march_csg(lib, state, params, o_w, d_w, tmax, **kw)
+    t_k = rm.march_csg(lib, state, params, o_w, d_w, tmax, hw=(H, W), **kw)
     t_p = rm.march_csg_plain(lib, state, params, o_w, d_w, tmax, **kw)
     out_k = frame if frame is not None else raymarch.shade(lib, state, params, cam, H, W, env,
                                                            d_w, d_cam, tmax, t_k)
@@ -424,25 +531,86 @@ def check_march(label, lib, state, params, K, cam, H, W, env, frame=None):
     visible_k = set(seg_k.unique().tolist())
     visible_p = set(seg_p.unique().tolist())
     ms, wrapper_ms, how = timed(
-        lambda: rm.march_csg(lib, state, params, o_w, d_w, tmax, **kw), "march_csg_kernel")
+        lambda: rm.march_csg(lib, state, params, o_w, d_w, tmax, hw=(H, W), **kw),
+        "march_csg_kernel")
     plain_ms = cuda_ms(lambda: rm.march_csg_plain(lib, state, params, o_w, d_w, tmax, **kw), 3)
     P = d_w.shape[0]
     nbytes = P * (12 + 4 + 4)
-    ops = march_work(rm, lib, state, params, o_w, d_w, tmax, env, 64, raymarch.HIT_EPS)
-    bound, bound_by = bound_of(ops, nbytes)
+    work = march_work(rm, lib, state, params, o_w, d_w, tmax, env, 64, raymarch.HIT_EPS, (H, W))
+    bound, bound_by = bound_of(work["need"], nbytes)
+    bound_strip, by_strip = bound_of(work["strip"], nbytes)
+    bound_tile, by_tile = bound_of(work["tile"], nbytes)
+    th, tw = rm.IMAGE_TILE
     print(f"K2 march_csg [{label}] {H}x{W} ({P} rays), {state.pos.shape[0]} bodies "
           f"({int(state.active.sum())} active), "
           f"{env.center.shape[0]} env boxes: seg agrees on {agree:.6f} of pixels, depth max "
           f"|err| {err:.3e} m where it agrees, bodies seen {sorted(visible_k)} vs "
-          f"{sorted(visible_p)}; kernel {ms:.4f} ms ({how}), wrapper {wrapper_ms:.4f} ms, "
-          f"plain {plain_ms:.3f} ms, bound "
-          f"{bound:.4f} ms ({ops:.3e} ops, {nbytes:.3e} bytes)", flush=True)
+          f"{sorted(visible_p)}; kernel {ms:.4f} ms ({how}), wrapper (call to return) "
+          f"{wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms; bound {bound:.4f} ms, {bound_by} "
+          f"({work['need']:.3e} ops: the bodies each ray's line meets); over the bodies a cull "
+          f"keeps: 256-ray strips {bound_strip:.4f} ms, {by_strip} ({work['strip']:.3e} ops), "
+          f"{th}x{tw} tiles {bound_tile:.4f} ms, {by_tile} ({work['tile']:.3e} ops); "
+          f"{nbytes:.3e} bytes", flush=True)
     if agree <= 0.995 or err > 2e-3 or visible_k != visible_p:
         fail(f"march_csg [{label}] disagrees with its plain version")
-    return {"max_abs_err": err, "ms": ms, "wrapper_ms": wrapper_ms, "timing": how,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+    return {"max_abs_err": err, "seg_agree": agree, "ms": ms, "wrapper_ms": wrapper_ms,
+            "timing": how, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "bound_ms_tile_cull": bound_strip, "bound_ms_square_tile_cull": bound_tile,
             "shapes": f"{H}x{W} rays, {state.pos.shape[0]} bodies, {env.center.shape[0]} env "
                       f"boxes, 64 steps"}
+
+
+def eval_march(scene, state, params, times):
+    """K2 on the eval path's settled scene: against its plain version, its
+    cull lists, one call = one device activity, the render stage split into
+    march and label passes, and the tried tiles."""
+    from catgrasp_tpu_torch.ops import render_march as rm
+    from catgrasp_tpu_torch.render import raymarch
+    from catgrasp_tpu_torch.sim.types import as_batch
+
+    dev = state.pos.device
+    cam = torch.as_tensor(scene.cam, dtype=torch.float32, device=dev)
+    K = torch.as_tensor(scene.K, dtype=torch.float32, device=dev)
+    H, W, env = scene.H, scene.W, scene.env_bin
+    k2 = check_march("eval path", scene.lib, state, params, K, cam, H, W, env)
+    o_w, d_w, d_cam, tmax = raymarch.camera_rays(K, cam, H, W)
+    kw = dict(env=env, n_steps=64, hit_eps=raymarch.HIT_EPS, hw=(H, W))
+    call = lambda: rm.march_csg(scene.lib, state, params, o_w, d_w, tmax, **kw)  # noqa: E731
+    queued, device = one_launch(call)
+    print(f"K2 {len(queued)} march_csg calls under torch.profiler: work queued inside each "
+          f"{queued}; device activities {sorted(set(device))} x {len(device)}", flush=True)
+    if len(queued) != 5 or any(len(q) != 1 or "Launch" not in q[0] for q in queued) \
+            or not device or any("march_csg_kernel" not in n for n in device):
+        fail("one march_csg call is not one launch of the kernel and nothing else")
+    one = (as_batch(state), as_batch(params))
+    check_cull_lists("eval path", rm, scene.lib, *one, o_w, d_w, (H, W))
+    t = call()
+
+    def wall_ms(fn, reps=10):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+    split = {"camera_rays_ms": wall_ms(lambda: raymarch.camera_rays(K, cam, H, W)),
+             "march_ms": wall_ms(call),
+             "shade_ms": wall_ms(lambda: raymarch.shade(scene.lib, state, params, cam, H, W, env,
+                                                        d_w, d_cam, tmax, t)),
+             "render_ms": wall_ms(lambda: raymarch.render(scene.lib, state, params, K, cam, H, W,
+                                                          env=env))}
+    print(f"eval path render stage, host wall with a synchronise, median of 10 (the main path's "
+          f"one render_s {times['render_s'] * 1e3:.3f} ms): {json.dumps(split)}", flush=True)
+    k2["breakdown_ms"] = march_breakdown(scene.lib, *one, o_w, d_w, tmax, env, (H, W))
+    print(f"K2 where the kernel's time goes [eval path], kernel ms: "
+          f"{json.dumps(k2['breakdown_ms'])}", flush=True)
+    k2["variants_ms"] = march_variants(scene.lib, *one, o_w, d_w, tmax, env, (H, W))
+    print(f"K2 tiles [eval path, 1 scene], kernel ms: "
+          f"{json.dumps(k2['variants_ms'])}", flush=True)
+    k2["render_split_ms"] = split
+    return k2
 
 
 # --------------------------------------------------------------------------
@@ -684,6 +852,41 @@ def check_rollout(dev, build_log: str):
 # --------------------------------------------------------------------------
 
 
+def march_batch(lib, states, params, K, cam, H, W, env):
+    """K2 on the entry point's whole render batch, one launch: the batch
+    against each scene marched alone (bit for bit), its cull lists, its
+    times, and the tried tiles."""
+    from catgrasp_tpu_torch.ops import render_march as rm
+    from catgrasp_tpu_torch.render import raymarch
+    from catgrasp_tpu_torch.sim.types import index_scenes
+
+    o_w, d_w, _, tmax = raymarch.camera_rays(K, cam, H, W)
+    kw = dict(env=env, n_steps=64, hit_eps=raymarch.HIT_EPS, hw=(H, W))
+    t_b = rm.march_csg_batch(lib, states, params, o_w, d_w, tmax, **kw)
+    same = all(torch.equal(t_b[b], rm.march_csg(lib, index_scenes(states, b),
+                                                 index_scenes(params, b), o_w, d_w, tmax, **kw))
+               for b in range(states.pos.shape[0]))
+    check_cull_lists("bench path, the batch", rm, lib, states, params, o_w, d_w, (H, W))
+    ms, wrapper_ms, how = timed(lambda: rm.march_csg_batch(lib, states, params, o_w, d_w, tmax,
+                                                           **kw), "march_csg_kernel")
+    variants = march_variants(lib, states, params, o_w, d_w, tmax, env, (H, W))
+    B, P = states.pos.shape[0], d_w.shape[0]
+    work = [march_work(rm, lib, index_scenes(states, b), index_scenes(params, b), o_w, d_w, tmax,
+                       env, 64, raymarch.HIT_EPS, (H, W)) for b in range(B)]
+    nbytes = B * P * 4 + P * 16
+    bound, bound_by = bound_of(sum(w["need"] for w in work), nbytes)
+    bound_strip, _ = bound_of(sum(w["strip"] for w in work), nbytes)
+    print(f"K2 march_csg_batch [bench path] {B} scenes x {H}x{W}, one launch: each scene's t "
+          f"equals the scene marched alone bit for bit: {same}; kernel {ms:.4f} ms ({how}), "
+          f"wrapper (call to return) {wrapper_ms:.4f} ms, bound {bound:.4f} ms, {bound_by} (over "
+          f"what 256-ray strips' culls keep: {bound_strip:.4f} ms); tiles, kernel "
+          f"ms: {json.dumps(variants)}", flush=True)
+    if not same:
+        fail("march_csg_batch: a scene of the batch differs from the scene marched alone")
+    return {"batch_ms": ms, "batch_wrapper_ms": wrapper_ms, "batch_bound_ms": bound,
+            "batch_bound_ms_tile_cull": bound_strip, "batch_variants_ms": variants}
+
+
 def bench_path(dev):
     """``catgrasp_tpu_torch.bench`` once at its own sizes, with every launch
     count set to 0 just before and read just after."""
@@ -702,9 +905,9 @@ def bench_path(dev):
     launches = {k: fn.launches for k, fn in counters.items()}
     print(f"bench path ({time.perf_counter() - t0:.2f} s): {json.dumps(record)}", flush=True)
     print(f"bench path launches: {json.dumps(launches)}", flush=True)
-    if launches != {"box_hits": 9, "march_csg": 72, "rollout_fused": 5}:
+    if launches != {"box_hits": 9, "march_csg": 9, "rollout_fused": 5}:
         fail(f"bench path launches {launches}: expected 5 K3 calls (1 warm-up + 4), 9 K1 calls "
-             f"and 9 x 8 K2 frames")
+             f"and 9 K2 calls (one a batch of 8 frames)")
     rates = [record["value"], *record["extra"].values()]
     if not all(np.isfinite(r) and r > 0 for r in rates):
         fail(f"bench path rates not finite and positive: {rates}")
@@ -748,6 +951,7 @@ def bench_path(dev):
                           index_scenes(params, b), K, cam, H, W, env,
                           frame={k: v[b] for k, v in frames.items()})
         k2 = one if k2 is None else k2  # the fullest scene's numbers are the ones kept
+    k2.update(march_batch(lib, states, params, K, cam, H, W, env))
     k1_bound, k1_by = bound_of(k1["ops"], k1["bytes"])
     at_bench = {
         "box_hits": {"shapes": "P=131072, C=2048, K=3 open boxes, A=7, margin 0",
@@ -757,7 +961,10 @@ def bench_path(dev):
                      "lane_use_warp": k1["lane_use_warp"],
                      "lane_use_block": k1["lane_use_block"]},
         "march_csg": {k: k2[k] for k in ("shapes", "max_abs_err", "ms", "wrapper_ms", "plain_ms",
-                                         "bound_ms", "bound_by")},
+                                         "bound_ms", "bound_by", "bound_ms_tile_cull",
+                                         "bound_ms_square_tile_cull", "batch_ms",
+                                         "batch_wrapper_ms", "batch_bound_ms",
+                                         "batch_bound_ms_tile_cull", "batch_variants_ms")},
     }
     return launches, at_bench
 
@@ -809,8 +1016,14 @@ def main_path(dev):
           f"{launches['box_hits'] / max(len(res.tried), 1):g}", flush=True)
     if launches["box_hits"] != 2 * len(res.tried):
         fail(f"box_hits launched {launches['box_hits']} times for {len(res.tried)} filter calls")
-    if launches["march_csg"] < 1:
-        fail("march_csg was not launched on the main path")
+    if launches["march_csg"] != 1:
+        fail(f"march_csg launched {launches['march_csg']} times for one render, expected 1")
+    s = res.tried[-1]["stats"]
+    print(f"filter counters of the last segment: {s['n_approach_dir_rej']:,} / {s['n_ik_rej']:,} / "
+          f"{s['n_collision_rej']:,} rejected (approach, IK, collision), "
+          f"{res.tried[-1]['n_valid']:,} valid of {res.tried[-1]['n_candidates']:,} (with the "
+          f"256-ray strip cull on this settled pile: 17,710 / 51,213 / 163,699 rejected, 22,226 "
+          f"valid)", flush=True)
     if launches["rollout_fused"] != 0:
         fail("the eval's settle runs the engine, not rollout_fused")
     out = res.out
@@ -876,8 +1089,7 @@ def main() -> None:
     check_box_hits_variants(dev)
     k1_random = check_box_hits(dev)
     scene, state, params, launches, times = main_path(dev)
-    k2 = check_march("eval path", scene.lib, state, params, scene.K,
-                     torch.as_tensor(scene.cam, device=dev), scene.H, scene.W, scene.env_bin)
+    k2 = eval_march(scene, state, params, times)
 
     # where the main path's time goes on the device (launches made here are
     # outside the counted run)
@@ -896,6 +1108,7 @@ def main() -> None:
     k3 = check_rollout(dev, logs["fused_rollout"])
     bench_launches, at_bench = bench_path(dev)
 
+    from catgrasp_tpu_torch.ops import render_march
     k1_bound, k1_by = bound_of(k1["ops"], k1["bytes"])
     k1_by_depth, _ = bound_of(k1["ops_by_depth"], k1["bytes"])
     random_bound, _ = bound_of(k1_random["ops"], k1_random["bytes"])
@@ -922,11 +1135,16 @@ def main() -> None:
              "lane_use_block": k1_random["lane_use_block"]},
          "at_bench_path": at_bench["box_hits"]},
         {"name": "march_csg", "route": "cuda", "source": "catgrasp_tpu_torch/csrc/march_csg.cu",
-         "replaces": "catgrasp_tpu/ops/render_march.py:223", "launches": launches["march_csg"],
+         "replaces": "catgrasp_tpu/ops/render_march.py:224", "launches": launches["march_csg"],
          "launches_bench_path": bench_launches["march_csg"],
-         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"], "wrapper_ms": k2["wrapper_ms"],
-         "timing": k2["timing"], "plain_ms": k2["plain_ms"],
+         "max_abs_err": k2["max_abs_err"], "seg_agree": k2["seg_agree"], "ms": k2["ms"],
+         "wrapper_ms": k2["wrapper_ms"], "timing": k2["timing"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"], "library_ms": None,
+         "bound_ms_tile_cull": k2["bound_ms_tile_cull"],
+         "bound_ms_square_tile_cull": k2["bound_ms_square_tile_cull"],
+         "tile": "x".join(map(str, render_march.IMAGE_TILE)),
+         "design": "one ray a thread", "variants_ms": k2["variants_ms"],
+         "breakdown_ms": k2["breakdown_ms"], "render_split_ms": k2["render_split_ms"],
          "shapes": k2["shapes"], "at_bench_path": at_bench["march_csg"]},
         {"name": "rollout_fused", "route": "cuda",
          "source": "catgrasp_tpu_torch/csrc/fused_rollout.cu",

@@ -15,7 +15,7 @@ from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
 from catgrasp_tpu_torch.render import raymarch
 from catgrasp_tpu_torch.sim import engine, env_pile
 from catgrasp_tpu_torch.sim.env_grasp import GripperSpec
-from catgrasp_tpu_torch.sim.types import (SceneParams, SceneState, build_shape_lib,
+from catgrasp_tpu_torch.sim.types import (SceneParams, SceneState, as_batch, build_shape_lib,
                                           index_scenes)
 
 torch.set_num_threads(2)
@@ -112,7 +112,7 @@ def test_box_hits_every_variant_matches_plain_exactly(dev, which, n_offsets, n_d
     assert not collision.box_hits_depths(t_inv, cloud, none, boxes, offsets, depths, 5e-4).any()
 
 
-def test_march_kernel_matches_plain(dev):
+def _march_scene(dev):
     classes = ("nut", "screw", "hnm")
     lib = build_shape_lib([primitives.make_instance(c, "train", 0) for c in classes],
                           [csg.make_csg_instance(c, "train", 0) for c in classes],
@@ -124,30 +124,174 @@ def test_march_kernel_matches_plain(dev):
                                   [0.9238795, 0, 0.3826834, 0]])
     state.active[:] = True
     env = engine.StaticEnv.open_bin((0.18, 0.18, 0.08), device=dev)
-    H, W = 100, 300  # 30,000 rays: a ragged last tile
-    K = torch.tensor([[250.0, 0, W / 2], [0, 250.0, H / 2], [0, 0, 1.0]], device=dev)
+    return lib, state, params, env
+
+
+def _top_camera(dev, H, W, f, z=0.3):
+    K = torch.tensor([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1.0]], device=dev)
     cam = torch.eye(4, device=dev)
     cam[:3, :3] = torch.tensor([[1.0, 0, 0], [0, -1, 0], [0, 0, -1]])
-    cam[2, 3] = 0.3
+    cam[2, 3] = z
+    return K, cam
+
+
+def _frames_agree(lib, state, params, cam, H, W, env, d_w, d_cam, tmax, t_k, t_p):
+    out_k = raymarch.shade(lib, state, params, cam, H, W, env, d_w, d_cam, tmax, t_k)
+    out_p = raymarch.shade(lib, state, params, cam, H, W, env, d_w, d_cam, tmax, t_p)
+    agree = (out_k["seg"] == out_p["seg"]).float().mean().item()
+    assert agree > 0.995
+    both = (out_k["seg"] == out_p["seg"]) & (out_p["seg"] != -1)
+    if both.any():
+        assert (out_k["depth"] - out_p["depth"])[both].abs().max().item() < 2e-3
+    assert set(out_k["seg"].unique().tolist()) == set(out_p["seg"].unique().tolist())
+    return out_k["seg"]
+
+
+def test_march_kernel_matches_plain(dev):
+    lib, state, params, env = _march_scene(dev)
+    H, W = 100, 300  # 30,000 rays: ragged strips and ragged 8x8 tiles
+    K, cam = _top_camera(dev, H, W, 250.0)
     o_w, d_w, d_cam, tmax = raymarch.camera_rays(K, cam, H, W)
     for e in (env, None):
-        n0 = render_march.march_csg.launches
-        t_k = render_march.march_csg(lib, state, params, o_w, d_w, tmax, env=e)
-        t_p = render_march.march_csg_plain(lib, state, params, o_w, d_w, tmax, env=e)
-        out_k = raymarch.shade(lib, state, params, cam, H, W, e, d_w, d_cam, tmax, t_k)
-        out_p = raymarch.shade(lib, state, params, cam, H, W, e, d_w, d_cam, tmax, t_p)
-        torch.cuda.synchronize()
-        assert render_march.march_csg.launches == n0 + 1
-        agree = (out_k["seg"] == out_p["seg"]).float().mean().item()
-        assert agree > 0.995
-        both = (out_k["seg"] == out_p["seg"]) & (out_p["seg"] != -1)
-        assert (out_k["depth"] - out_p["depth"])[both].abs().max().item() < 2e-3
-        assert set(out_k["seg"].unique().tolist()) == set(out_p["seg"].unique().tolist())
+        for hw in (None, (H, W)):
+            n0 = render_march.march_csg.launches
+            t_k = render_march.march_csg(lib, state, params, o_w, d_w, tmax, env=e, hw=hw)
+            t_p = render_march.march_csg_plain(lib, state, params, o_w, d_w, tmax, env=e)
+            torch.cuda.synchronize()
+            assert render_march.march_csg.launches == n0 + 1
+            _frames_agree(lib, state, params, cam, H, W, e, d_w, d_cam, tmax, t_k, t_p)
     # inactive bodies are culled: the kernel never hits them
     state.active[1] = False
-    t_k = render_march.march_csg(lib, state, params, o_w, d_w, tmax, env=env)
+    t_k = render_march.march_csg(lib, state, params, o_w, d_w, tmax, env=env, hw=(H, W))
     seg = raymarch.shade(lib, state, params, cam, H, W, env, d_w, d_cam, tmax, t_k)["seg"]
     assert not (seg == 1).any()
+
+
+def _render_batch_inputs(dev, batch=4):
+    specs = (("nut", 0), ("screw", 0), ("hnm", 0), ("nut", 3))
+    cfg, lib, env, states, params = _pile_batch(dev, specs, 32, 10, batch, 60)
+    H, W = 96, 128
+    K, cam = _top_camera(dev, H, W, 140.0, z=0.7)
+    return lib, env, states, params, K, cam, H, W
+
+
+def test_march_batch_kernel_matches_each_scene_and_the_plain_march(dev):
+    """One launch over a batch gives each scene's t bit for bit as the scene
+    marched alone, and agrees with the plain march."""
+    lib, env, states, params, K, cam, H, W = _render_batch_inputs(dev)
+    o_w, d_w, d_cam, tmax = raymarch.camera_rays(K, cam, H, W)
+    kw = dict(env=env, hw=(H, W))
+    n0 = render_march.march_csg.launches
+    t_b = render_march.march_csg_batch(lib, states, params, o_w, d_w, tmax, **kw)
+    assert render_march.march_csg.launches == n0 + 1 and t_b.shape == (4, H * W)
+    t_p = render_march.march_csg_plain(lib, states, params, o_w, d_w, tmax, env=env)
+    seen = set()
+    for b in range(4):
+        st, pr = index_scenes(states, b), index_scenes(params, b)
+        assert torch.equal(t_b[b], render_march.march_csg(lib, st, pr, o_w, d_w, tmax, **kw))
+        seen |= set(_frames_agree(lib, st, pr, cam, H, W, env, d_w, d_cam, tmax, t_b[b],
+                                  t_p[b]).unique().tolist())
+    assert len(seen - {-1, -2}) >= 4  # the frames show bodies
+    # the render batch is one launch
+    n0 = render_march.march_csg.launches
+    out = raymarch.render_batch(lib, states, params, K, cam, H, W, env=env)
+    assert render_march.march_csg.launches == n0 + 1 and out["seg"].shape == (4, H, W)
+
+
+def _assert_cull_lists_match(lib, states, params, o_w, d_w, hw, tile=None):
+    vk, nk = render_march.tile_visibility_kernel(lib, states, params, o_w, d_w, hw=hw, tile=tile)
+    radius_w = lib.radius[params.shape_id] * params.scale
+    vp, np_ = render_march.tile_visibility(o_w, d_w, states.pos, radius_w, states.active, hw,
+                                           tile)
+    margin, _ = render_march.cull_margin(o_w, d_w, states.pos, radius_w, hw, tile)
+    N = vk.shape[-1]
+    body = torch.arange(N, device=vk.device)
+    in_k = (vk.long()[..., None] == body).any(dim=-2)
+    in_p = (torch.where(body < np_[..., None], vp, -1).long()[..., None] == body).any(dim=-2)
+    differ = in_k != in_p
+    # a body may fall on the other side only within 1e-5 of the threshold
+    assert bool((~differ | ((margin + 1e-4).abs() < 1e-5)).all())
+    assert differ.sum().item() <= 1e-3 * differ.numel()
+    # the kernel lists the visible bodies in index order, then -1
+    assert torch.equal(vk >= 0, body < nk[..., None])
+    assert bool(((vk[..., 1:] > vk[..., :-1]) | (vk[..., 1:] < 0)).all())
+    return nk
+
+
+@pytest.mark.parametrize("hw,tile", [
+    (None, None),  # a bare ray set: 256-ray strips, a ragged last strip
+    ((96, 128), None),  # 8x8 tiles
+    ((100, 130), None),  # ragged 8x8 tiles on both edges
+    ((96, 128), (8, 32)), ((96, 128), (32, 8)), ((100, 130), (16, 16)), ((100, 130), (5, 7)),
+])
+def test_march_kernel_cull_lists_match_the_plain_cull(dev, hw, tile):
+    lib, env, states, params, K, cam, H, W = _render_batch_inputs(dev)
+    h, w = hw if hw is not None else (H, W)
+    K, cam = _top_camera(dev, h, w, 140.0, z=0.7)
+    o_w, d_w, _, tmax = raymarch.camera_rays(K, cam, h, w)
+    n0 = render_march.march_csg.launches
+    nk = _assert_cull_lists_match(lib, states, params, o_w, d_w, hw, tile)
+    assert render_march.march_csg.launches == n0  # the cull's own launch is not counted
+    assert nk.min().item() < nk.max().item()  # the cull keeps some bodies and drops others
+    if tile is not None or hw is not None:  # the march takes these tiles too
+        t_k = render_march._march(lib, states, params, o_w, d_w, tmax, env=env, hw=hw, tile=tile)
+        t_p = render_march.march_csg_plain(lib, states, params, o_w, d_w, tmax, env=env)
+        hit_k, hit_p = t_k < tmax * 0.999, t_p < tmax * 0.999
+        assert (hit_k != hit_p).float().mean().item() < 0.005
+
+
+def test_march_kernel_at_its_limits(dev):
+    """0 active bodies, no env, 32 bodies and 16 env boxes (some disabled),
+    against the plain march; 33 bodies or 17 env boxes raise."""
+    lib, state, params, env = _march_scene(dev)
+    H, W = 60, 90
+    K, cam = _top_camera(dev, H, W, 120.0)
+    o_w, d_w, d_cam, tmax = raymarch.camera_rays(K, cam, H, W)
+    # no active body: the env alone; no env: the bodies alone; neither
+    for st, e in ((state.replace(active=torch.zeros_like(state.active)), env), (state, None),
+                  (state.replace(active=torch.zeros_like(state.active)), None)):
+        t_k = render_march.march_csg(lib, st, params, o_w, d_w, tmax, env=e, hw=(H, W))
+        t_p = render_march.march_csg_plain(lib, st, params, o_w, d_w, tmax, env=e)
+        _frames_agree(lib, st, params, cam, H, W, e, d_w, d_cam, tmax, t_k, t_p)
+    assert torch.equal(t_k, tmax)  # nothing to hit: every ray runs to tmax
+    # 32 bodies on a grid, every shape, and 16 env boxes, a third disabled
+    n = 32
+    gx, gy = torch.meshgrid(torch.arange(8), torch.arange(4), indexing="ij")
+    big = SceneState.create(n, device=dev)
+    big.pos[:] = torch.stack([(gx.flatten() - 3.5) * 0.025, (gy.flatten() - 1.5) * 0.03,
+                              torch.full((n,), 0.02)], dim=1).to(dev)
+    big.quat[:, 0] = 1.0
+    big.active[:] = True
+    big.active[5] = False
+    bpar = SceneParams.create(lib, [i % 3 for i in range(n)], [0.8 + 0.01 * i for i in range(n)])
+    centers = [(0.11 * (i % 4 - 1.5), 0.11 * (i // 4 - 1.5), -0.01 - 0.001 * i) for i in range(16)]
+    env16 = engine.StaticEnv.boxes(centers, [(0.05, 0.05, 0.005)] * 16, device=dev)
+    env16 = env16.replace(enabled=torch.arange(16, device=dev) % 3 != 0)
+    t_k = render_march.march_csg(lib, big, bpar, o_w, d_w, tmax, env=env16, hw=(H, W))
+    t_p = render_march.march_csg_plain(lib, big, bpar, o_w, d_w, tmax, env=env16)
+    seg = _frames_agree(lib, big, bpar, cam, H, W, env16, d_w, d_cam, tmax, t_k, t_p)
+    assert len(set(seg.unique().tolist()) - {-1, -2}) >= 20 and (seg == -2).any()
+    assert not (seg == 5).any()
+    _assert_cull_lists_match(lib, as_batch(big), as_batch(bpar), o_w, d_w, (H, W))
+    # beyond the limits, and what the kernel does not take, raise before any launch
+    n0 = render_march.march_csg.launches
+    more = SceneState.create(33, device=dev)
+    with pytest.raises(ValueError, match="33 bodies"):
+        render_march.march_csg(lib, more, SceneParams.create(lib, [0] * 33), o_w, d_w, tmax)
+    env17 = engine.StaticEnv.boxes(centers + [(0.0, 0.0, -0.05)], [(0.05, 0.05, 0.005)] * 17,
+                                   device=dev)
+    with pytest.raises(ValueError, match="17 env boxes"):
+        render_march.march_csg(lib, big, bpar, o_w, d_w, tmax, env=env17)
+    with pytest.raises(ValueError, match="float32"):
+        render_march.march_csg(lib, state.replace(pos=state.pos.double()), params, o_w, d_w, tmax)
+    with pytest.raises(ValueError, match="contiguous"):
+        render_march.march_csg(lib, state.replace(quat=state.quat.t().contiguous().t()), params,
+                               o_w, d_w, tmax)
+    with pytest.raises(ValueError, match="image has"):
+        render_march.march_csg(lib, state, params, o_w, d_w, tmax, hw=(H, W + 1))
+    with pytest.raises(ValueError, match="rays a tile"):
+        render_march._march(lib, state, params, o_w, d_w, tmax, hw=(H, W), tile=(16, 32))
+    assert render_march.march_csg.launches == n0
 
 
 def _pile_batch(dev, specs, n_surf, max_bodies, batch, fall_steps):
