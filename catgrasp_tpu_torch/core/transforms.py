@@ -16,9 +16,11 @@ import math
 
 import torch
 
+from ..device import constant
+
 
 def _like(values, ref: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(values, dtype=ref.dtype, device=ref.device)
+    return constant(tuple(values), ref.dtype, ref.device)
 
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

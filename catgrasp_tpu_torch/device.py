@@ -1,6 +1,8 @@
 """Device selection shared by the port's entry points."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -17,3 +19,12 @@ def resolve_device(device=None) -> torch.device:
                 "available; pass device='cpu' to run on the host")
         return torch.device("cuda")
     return torch.device(device)
+
+
+@functools.lru_cache(maxsize=None)
+def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A constant tensor held on ``device``, made once per (values, dtype,
+    device).  A loop that needs it every step then copies nothing from the
+    host: a copy from pageable host memory makes the host wait for the
+    stream.  The tensor is shared, so callers never write into it."""
+    return torch.tensor(values, dtype=dtype, device=device)

@@ -16,9 +16,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import transforms as tf
 from ..kin import iiwa
 from ..ops import collision
-from ..sim.env_grasp import GripperSpec
+from ..sim.env_grasp import GripperSpec, closing_channel_mask
 
 ADJUST_OFFSETS = np.array([0.0, 1e-3, -1e-3, 2e-3, -2e-3, 3e-3, -3e-3], dtype=np.float32)
 # approach-depth adjust extension (deepest collision-free engagement wins)
@@ -137,7 +138,26 @@ def filter_grasp_poses(
 
 
 def compact_valid(poses, valid) -> np.ndarray:
-    """Host-side compaction of the masked candidate set."""
+    """The masked candidate set on the host (compacted on the device first
+    when given tensors, so only the valid poses are copied)."""
     if isinstance(poses, torch.Tensor):
-        poses, valid = poses.cpu().numpy(), valid.cpu().numpy()
+        return poses[torch.as_tensor(valid, device=poses.device)].cpu().numpy()
     return np.asarray(poses)[np.asarray(valid)]
+
+
+def engagement_depth(points: torch.Tensor, grasp_poses: torch.Tensor,
+                     spec: GripperSpec = GripperSpec()) -> torch.Tensor:
+    """How deeply each grasp engages the target: (C, 3), (K, 4, 4) -> (K,)
+    in [0, 1].  0 = object only at the fingertip plane (tip-engagement
+    holds slip under gravity), 1 = object reaches the finger roots.  The
+    depth is read at the 3rd-smallest in-channel x (out-of-channel points
+    at the fingertip plane), so 1-2 flying pixels at an object's edge
+    cannot fake engagement; with fewer than 3 points it is 0."""
+    fl = spec.finger_len
+    if points.shape[0] < 3:
+        return torch.zeros(grasp_poses.shape[0], dtype=points.dtype, device=points.device)
+    pts_g = tf.transform_points(tf.pose_inverse(grasp_poses), points)  # (K, C, 3)
+    in_chan = closing_channel_mask(pts_g, spec)
+    x = torch.where(in_chan, pts_g[..., 0], fl)
+    third = torch.kthvalue(x, 3, dim=-1).values
+    return torch.clamp((fl - third) / fl, 0.0, 1.0)

@@ -1,10 +1,13 @@
-"""Darboux-frame cone grasp sampler (``catgrasp_tpu/grasp/sampler.py`` in
-PyTorch; the NOCS-transfer sampler comes with the pick-and-place half).
+"""Grasp samplers (``catgrasp_tpu/grasp/sampler.py`` in PyTorch).
 
-Pick surface points, build a Darboux frame from each neighborhood's normal
-covariance, augment with sphere directions within a 60° cone x in-plane
-rolls x approach depths, then run the batched pose filter.  The whole
-candidate tensor (points x dirs x rolls x depths) is built in one pass.
+* :class:`PointConeGraspSampler`: pick surface points, build a Darboux
+  frame from each neighborhood's normal covariance, augment with sphere
+  directions within a 60° cone x in-plane rolls x approach depths, then run
+  the batched pose filter.  The whole candidate tensor (points x dirs x
+  rolls x depths) is built in one pass.
+* :class:`NocsTransferGraspSampler`: map a canonical grasp codebook through
+  the estimated NUNOCS pose, expanded by the category's symmetries, and
+  filter.
 """
 from __future__ import annotations
 
@@ -173,4 +176,56 @@ class PointConeGraspSampler:
             torch.ones(pts.shape[0], dtype=torch.bool, device=dev),
             torch.as_tensor(background_mask, device=dev),
             spec=self.gripper.spec, filter_ik=filter_ik, **filter_kw,
+        )
+
+
+def center_object_between_fingers(poses: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
+    """Shift each grasp (K, 4, 4) along its closing axis so the object cloud
+    (C, 3) is centered between the fingers."""
+    pts_g = tf.transform_points(tf.pose_inverse(poses), points)  # (K, C, 3)
+    c = (torch.amax(pts_g[..., 1], dim=-1) + torch.amin(pts_g[..., 1], dim=-1)) / 2
+    out = poses.clone()
+    out[:, :3, 3] = poses[:, :3, 3] + poses[:, :3, 1] * c[:, None]
+    return out
+
+
+@dataclass
+class NocsTransferGraspSampler:
+    """Map the canonical grasp codebook into the scene via the estimated 9D
+    NUNOCS pose."""
+
+    gripper: Gripper
+    canonical_grasps: np.ndarray  # (K, 4, 4) grasp poses in canonical frame
+    canonical_scores: np.ndarray  # (K,) perturbation scores
+    score_larger_than: float = 0.0
+    max_n_grasp: int | None = None
+
+    def __post_init__(self):
+        """Keep the grasps scored at least ``score_larger_than``, the best
+        ``max_n_grasp`` of them."""
+        keep = self.canonical_scores >= self.score_larger_than
+        g, s = self.canonical_grasps[keep], self.canonical_scores[keep]
+        if self.max_n_grasp is not None and len(g) > self.max_n_grasp:
+            order = np.argsort(-s)[: self.max_n_grasp]
+            g, s = g[order], s[order]
+        self.canonical_grasps, self.canonical_scores = g, s
+
+    def sample_grasps(self, nocs_pose, symmetry_tfs, background_cloud, background_mask,
+                      collision_cloud, collision_mask, cam_in_world=None,
+                      filter_ik=True, filter_approach=False, **filter_kw):
+        """The codebook x symmetries, filtered: (poses (K*S, 4, 4) in camera
+        frame, valid mask, stats), on the device of ``nocs_pose``."""
+        nocs_pose = torch.as_tensor(nocs_pose, dtype=torch.float32)
+        dev = nocs_pose.device
+
+        def t(x, dtype=torch.float32):
+            return torch.as_tensor(x, dtype=dtype, device=dev)
+
+        cam_in_world = torch.eye(4, device=dev) if cam_in_world is None else t(cam_in_world)
+        return filter_grasp_poses(
+            t(self.canonical_grasps), t(symmetry_tfs), nocs_pose, cam_in_world,
+            t(self.gripper.ee_in_grasp), t(collision_cloud).contiguous(),
+            t(background_cloud).contiguous(), t(collision_mask, torch.bool),
+            t(background_mask, torch.bool), spec=self.gripper.spec, filter_ik=filter_ik,
+            filter_approach=filter_approach, **filter_kw,
         )

@@ -2,9 +2,12 @@
 (``catgrasp_tpu/kin/iiwa.py`` in PyTorch).
 
 The iiwa's S-R-S structure makes its 7-DoF redundancy one scalar arm angle
-ψ; for each ψ the 6-DoF remainder is closed-form with 8 branches.  The
-feasibility gate sweeps ψ on a static grid.  ``ik`` and ``ik_best`` (the
-joint solutions themselves) come with the pick-and-place half.
+ψ; for each ψ the 6-DoF remainder is closed-form with 8 branches (elbow ±,
+shoulder ±, wrist ±).  Sampling ψ on a static grid turns IK into a
+fixed-shape batched computation: ``ik`` maps poses (..., 4, 4) to
+(..., 8*n_psi, 7) candidate solutions and a validity mask, and the
+feasibility gate ``ik_feasible`` answers "any valid candidate" without
+building them.
 
 Kinematic convention (standard iiwa14 dimensions):
   T_0F(q) = Tz(.36)·Rz(q1)Ry(q2)Rz(q3)·Tz(.42)·Ry(q4)·Tz(.40)·Rz(q5)Ry(q6)Rz(q7)·Tz(.126)
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core import transforms as tf
+from ..device import constant
 
 D_BS = 0.36
 D_SE = 0.42
@@ -31,6 +35,7 @@ _TAN10 = float(np.tan(np.deg2rad(10.0)))  # ±170° interval test slope
 _TAN5 = float(np.tan(np.deg2rad(5.0)))    # ±175°
 _COS120 = float(np.cos(np.deg2rad(120.0)))
 _Q4_LIMIT = float(np.float32(JOINT_LIMITS[3]))
+_LIMITS_F32 = JOINT_LIMITS.astype(np.float32)
 _POSES_PER_CHUNK = 1 << 16  # bounds the (poses, n_psi, 3) intermediates
 
 
@@ -58,7 +63,7 @@ def fk_frames(q: torch.Tensor):
     batch = q.shape[:-1]
 
     def vec(*v):
-        return torch.tensor(v, dtype=q.dtype, device=q.device)
+        return constant(v, q.dtype, q.device)
 
     R03 = _rz(q1) @ _ry(q2) @ _rz(q3)
     p_s = vec(0.0, 0.0, D_BS).expand(batch + (3,))
@@ -75,6 +80,111 @@ def fk_frames(q: torch.Tensor):
     p_f = p_w + torch.einsum("...ij,j->...i", R07, vec(0.0, 0.0, D_WF))
     T_F = tf.pose_from_rt(R07, p_f)
     return T_S, T_E, T_W, T_F
+
+
+def _psi_grid(n_psi: int, dev) -> torch.Tensor:
+    """The arm-angle grid, as ``jnp.linspace(0, 2pi, n_psi, endpoint=False)``
+    computes it."""
+    two_pi = constant(2 * math.pi, torch.float32, dev)
+    return two_pi * (torch.arange(n_psi, dtype=torch.float32, device=dev) / n_psi)
+
+
+def _euler_zyz(R):
+    """Both ZYZ decompositions of R (..., 3, 3): (a, b, c), each (..., 2),
+    with R = Rz(a) Ry(b) Rz(c).  At the b≈0 singularity the spin folds
+    into ``a``; b≈pi is outside the ±120° limit of joints 2, 4 and 6."""
+    r02, r12, r22 = R[..., 0, 2], R[..., 1, 2], R[..., 2, 2]
+    r20, r21 = R[..., 2, 0], R[..., 2, 1]
+    r00, r10 = R[..., 0, 0], R[..., 1, 0]
+    sb = torch.sqrt(torch.clamp(r02**2 + r12**2, min=0.0))
+    degen = sb < 1e-7
+
+    b1 = torch.arctan2(sb, r22)
+    a1 = torch.where(degen, torch.arctan2(r10, r00), torch.arctan2(r12, r02))
+    c1 = torch.where(degen, 0.0, torch.arctan2(r21, -r20))
+
+    b2 = -b1
+    a2 = torch.where(degen, a1, torch.arctan2(-r12, -r02))
+    c2 = torch.where(degen, c1, torch.arctan2(-r21, r20))
+    return (torch.stack([a1, a2], dim=-1), torch.stack([b1, b2], dim=-1),
+            torch.stack([c1, c2], dim=-1))
+
+
+def _wrap_pi(q: torch.Tensor) -> torch.Tensor:
+    """Wrap angles to [-pi, pi) as ``jnp.mod(q + pi, 2 pi) - pi`` does (a
+    truncated remainder, moved up by 2 pi where it is negative)."""
+    two_pi = constant(2 * math.pi, q.dtype, q.device)
+    r = torch.fmod(q + math.pi, two_pi)
+    return torch.where((r != 0) & (r < 0), r + two_pi, r) - math.pi
+
+
+def ik(T: torch.Tensor, n_psi: int = N_PSI):
+    """All candidate joint solutions for flange poses T (..., 4, 4).
+
+    Returns ``(q, valid)`` with q (..., 8*n_psi, 7) and valid
+    (..., 8*n_psi) bool (within joint limits AND position-solvable).
+    Branch layout: psi-grid x elbow± x shoulder± x wrist±."""
+    dev = T.device
+    R = T[..., :3, :3]
+    p = T[..., :3, 3]
+    p_w = p - R[..., :, 2] * D_WF
+    sw = p_w - constant((0.0, 0.0, D_BS), torch.float32, dev)
+    d_sw = tf.norm(sw)
+
+    # --- elbow angle (2 branches) ---
+    cos_q4 = (d_sw**2 - D_SE**2 - D_EW**2) / (2 * D_SE * D_EW)
+    reachable = torch.abs(cos_q4) <= 1.0
+    q4_mag = torch.arccos(torch.clamp(cos_q4, -1.0, 1.0))
+    q4 = torch.stack([q4_mag, -q4_mag], dim=-1)  # (..., 2)
+    u_sw = sw / torch.clamp(d_sw, min=1e-9)[..., None]
+    psi = _psi_grid(n_psi, dev)
+
+    # reference shoulder config (q3 = 0): Rz(q1)Ry(q2) v = sw, with v the
+    # elbow-to-wrist offset (vx, 0, vz) in the upper-arm frame
+    vx = D_EW * torch.sin(q4)
+    vz = D_SE + D_EW * torch.cos(q4)
+    r_xy = torch.sqrt(sw[..., 0] ** 2 + sw[..., 1] ** 2)
+    q1_0 = torch.arctan2(sw[..., 1], sw[..., 0])
+    theta_sw = torch.arctan2(r_xy, sw[..., 2])
+    q2_0 = theta_sw[..., None] - torch.arctan2(vx, vz)  # (..., 2)
+    R03_ref = _rz(q1_0)[..., None, :, :] @ _ry(q2_0)  # (..., 2, 3, 3)
+
+    # arm-angle rotation about the SW axis
+    R_psi = tf.axis_angle_to_matrix(u_sw[..., None, :], psi)  # (..., P, 3, 3)
+    R03 = R_psi[..., :, None, :, :] @ R03_ref[..., None, :, :, :]  # (..., P, 2, 3, 3)
+
+    # shoulder ZYZ (2 branches), then the wrist of each (2 branches)
+    a_s, b_s, c_s = _euler_zyz(R03)  # (..., P, 2e, 2s)
+    R03b = _rz(a_s) @ _ry(b_s) @ _rz(c_s)
+    q4_b = q4[..., None, :, None].expand(a_s.shape)
+    R47 = _ry(-q4_b) @ R03b.transpose(-1, -2) @ R[..., None, None, None, :, :]
+    a_w, b_w, c_w = _euler_zyz(R47)  # (..., P, 2e, 2s, 2w)
+
+    def wide(x):
+        return x[..., None].expand(a_w.shape)
+
+    qs = torch.stack([wide(a_s), wide(b_s), wide(c_s), wide(q4_b), a_w, b_w, c_w], dim=-1)
+    qs = _wrap_pi(qs.reshape(T.shape[:-2] + (8 * n_psi, 7)))
+    lim = constant(tuple(_LIMITS_F32.tolist()), torch.float32, dev)
+    within = torch.all((qs <= lim) & (qs >= -lim), dim=-1)
+    return qs, within & reachable[..., None]
+
+
+def ik_best(T: torch.Tensor, q_ref: torch.Tensor | None = None, n_psi: int = N_PSI):
+    """Single best IK solution of each pose (..., 4, 4): the valid candidate
+    closest to ``q_ref`` (or to zero).  Returns (q (..., 7), found)."""
+    qs, valid = ik(T, n_psi)
+    ref = torch.zeros(7, device=T.device) if q_ref is None else q_ref
+    cost = torch.sum((qs - ref[..., None, :]) ** 2, dim=-1)
+    cost = torch.where(valid, cost, float("inf"))
+    i = torch.argmin(cost, dim=-1, keepdim=True)
+    q = torch.take_along_dim(qs, i[..., None], dim=-2)[..., 0, :]
+    return q, torch.take_along_dim(valid, i, dim=-1)[..., 0]
+
+
+# ``ik`` takes any leading axes: the JAX package's vmapped ``ik_batch`` is
+# ``ik`` of a (B, 4, 4) batch
+ik_batch = ik
 
 
 def _rodrigues(u, cps, sps, v):
@@ -96,7 +206,7 @@ def _ik_feasible(Ts: torch.Tensor, n_psi: int) -> torch.Tensor:
     R = Ts[..., :3, :3]
     p = Ts[..., :3, 3]
     p_w = p - R[..., :, 2] * D_WF
-    sw = p_w - torch.tensor([0.0, 0.0, D_BS], device=dev)
+    sw = p_w - constant((0.0, 0.0, D_BS), torch.float32, dev)
     d2 = torch.sum(sw * sw, dim=-1)
     d_sw = torch.sqrt(d2)
 
@@ -106,9 +216,7 @@ def _ik_feasible(Ts: torch.Tensor, n_psi: int) -> torch.Tensor:
     elbow_ok = q4m <= _Q4_LIMIT
 
     u = sw / torch.clamp(d_sw, min=1e-9)[..., None]
-    # jnp.linspace(0, 2pi, n_psi, endpoint=False) arithmetic
-    two_pi = torch.tensor(2 * math.pi, dtype=torch.float32, device=dev)
-    psi = two_pi * (torch.arange(n_psi, dtype=torch.float32, device=dev) / n_psi)
+    psi = _psi_grid(n_psi, dev)
     bshape = Ts.shape[:-2] + (n_psi,)
     cps = torch.cos(psi).expand(bshape)
     sps = torch.sin(psi).expand(bshape)
@@ -117,7 +225,7 @@ def _ik_feasible(Ts: torch.Tensor, n_psi: int) -> torch.Tensor:
     q1_0 = torch.arctan2(sw[..., 1], sw[..., 0])
     theta_sw = torch.arctan2(rxy, sw[..., 2])
 
-    e_z = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(u.shape)
+    e_z = constant((0.0, 0.0, 1.0), torch.float32, dev).expand(u.shape)
     rot_neg_ez = _rodrigues(u, cps, -sps, e_z)
     rot_neg_rz = _rodrigues(u, cps, -sps, R[..., :, 2])
 

@@ -1,29 +1,32 @@
-"""Closed-loop clutter evaluation, front half
+"""Closed-loop clutter evaluation
 (``catgrasp_tpu/pipelines/run_grasp_simulation.py`` in PyTorch).
 
-The JAX loop ``simulate_grasp_rounds`` runs, per round: scene set-up, pile
-reset and settle, then per attempt: render -> segment -> per segment:
-occupancy fill, grasp sampling + filtering, scoring, pick, place, tally.
-This module ports the part up to the filtered candidate set as three
-functions the full loop calls unchanged:
+Per round: scene set-up, pile reset and settle; then per attempt: render ->
+ground-truth segments -> per segment: occupancy-densified background, the
+oracle NUNOCS pose, cone and NOCS-transfer grasp sampling + filtering ->
+task-affordance scoring P(T|G), analytic quality P(G), thresholds on
+P(T,G) and an engagement tiebreak -> IK + RRT to the pregrasp over the best
+12 -> arm-executed pick (approach, close, hold gate, lift) -> arm-executed
+place over the category's fixture (symmetry loop, RRT transport,
+insertion, release) -> re-settle -> tallies ``num_objects / num_attempts
+/ num_stable_grasp / num_task_grasp_succ``.
 
-* :func:`setup_scene` — shape library, bin + table colliders, camera, robot
-  base, cone sampler (JAX lines 343-455);
-* :func:`make_round_pile` — one round's pile: reset, fixture body, fixed
-  settle (lines 458-482);
-* :func:`oracle_cone_attempt` — one attempt in oracle perception mode with
-  the cone sampler: render, ground-truth segments by pixel count, per
-  segment the occupancy-densified background cloud, sampling and the
-  filter, stopping at the first segment that yields candidates (lines
-  484-604).
+Ported: oracle perception, CSG geometry, the arm-executed pick and place
+(``use_arm`` and ``arm_exec`` on).  Learned perception, the grid-SDF
+geometry (``obj_path``), articulated arm dynamics and the floating-gripper
+baseline raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that
+ports them.
 
-The oracle NUNOCS pose, the NOCS-transfer sampler, scoring, the pick and
-place and the tallies come with the next slice.  Numpy randomness (the
-512-point collision subsample, the 4,096-point background subsample) makes
-the same calls in the same order as the JAX loop.
+The numpy randomness makes the JAX loop's calls in the same order: the
+4,096-point background and 512-point collision subsamples of each segment
+tried, the 128-candidate subsample, the 1,024-point obstacle subsample, and
+the planners' own ``default_rng`` streams.  torch draws (the pile reset, the
+cone sampler's points) come from one ``torch.Generator`` seeded with
+``seed``.
 """
 from __future__ import annotations
 
+import argparse
 import time
 from dataclasses import dataclass
 
@@ -31,21 +34,42 @@ import numpy as np
 import torch
 
 from ..config.loader import load_config
+from ..core import transforms as tf
+from ..core.symmetry import get_symmetry_tfs
 from ..device import resolve_device
 from ..geom import csg as csglib
 from ..geom import occupancy
 from ..geom import primitives as prim
-from ..grasp.filter import compact_valid
+from ..grasp.filter import compact_valid, engagement_depth
 from ..grasp.gripper import Gripper
-from ..grasp.sampler import PointConeGraspSampler
+from ..grasp.quality import parallel_jaw_quality
+from ..grasp.sampler import NocsTransferGraspSampler, PointConeGraspSampler
+from ..kin import iiwa, planner
+from ..pipelines.make_canonical import to_nunocs_transform
 from ..render import raymarch
 from ..sim import arm as simarm
 from ..sim import engine, env_pile
+from ..sim import env_semantic as es
+from ..sim.env_grasp import GripperSpec, finger_contact_points
 from ..sim.types import SceneParams, SceneState, ShapeLib, build_shape_lib
+from ..utils.metrics import MetricsLogger
 
+Q_HOME = np.zeros(7, np.float32)  # straight-up home (clear of the bin)
+LIFT_HEIGHT = 0.25
+LIFT_STEPS = 80
+CLOSE_STEPS = 50
+# arm-executed phase lengths (engine steps)
+N_APP, N_LIFT_A = 140, 50  # approach = RRT segment (110) + descent (30)
+N_MOVE_P, N_DROP_P = 140, 100
+SETTLE_STEPS = 500  # a round's pile
+RESETTLE_STEPS = 150  # after each attempt
 FIXTURE_POS = np.array([-0.10, -0.50, 0.0], np.float32)  # world, beside the bin
 MAX_COLLISION_PTS = 512
 MAX_BACKGROUND_PTS = 4096
+MAX_CANDIDATES = 128
+MAX_OBSTACLE_PTS = 1024
+PICK_TRIES = 12  # candidates the pick gate tries, in order
+RRT_MAX_ITER = 500
 
 
 @dataclass
@@ -70,16 +94,24 @@ class EvalScene:
     gripper: Gripper
     cone: PointConeGraspSampler
     device: torch.device
+    # the canonical model (numpy arrays) and its grasp-codebook sampler;
+    # None without a canonical
+    canonical: dict | None = None
+    nocs: NocsTransferGraspSampler | None = None
+    sym: np.ndarray | None = None  # (S, 4, 4) the category's symmetries
+    T_fix: np.ndarray | None = None  # (4, 4) fixture in world
+    fix_pts_base: np.ndarray | None = None  # fixture surface points, base frame
     # 1.56 mm occupancy voxels (128^3 over the 0.2 m reach)
     grid_dims: tuple = (128, 128, 128)
 
 
 def setup_scene(class_name: str = "nut", n_objects: int = 5, cfg_run: dict | None = None,
                 render_hw=(384, 512), instance: int | None = None,
-                device=None) -> EvalScene:
+                canonical: dict | None = None, device=None) -> EvalScene:
     """Scene set-up of one eval run: the pile is ONE object model at scale 1
     (or mixed instances when ``instance`` < 0) plus that model's place
-    fixture."""
+    fixture; with a ``canonical`` model, its grasp codebook feeds the
+    NOCS-transfer sampler."""
     dev = resolve_device(device)
     cfg_run = cfg_run or load_config("config_run.yml")
     gripper = Gripper.default()
@@ -96,6 +128,7 @@ def setup_scene(class_name: str = "nut", n_objects: int = 5, cfg_run: dict | Non
     # 256 surface points a body: the peg-through-nut-hole interaction needs
     # < 3 mm point spacing on thin features
     lib = build_shape_lib(meshes, csgs, n_surf=256, device=dev)
+    fixture_idx = len(meshes) - 1
 
     pile_cfg = env_pile.PileConfig(max_bodies=n_objects, scale_range=(0.9, 1.1))
     # table slab under the fixture area catches objects that miss the fixture
@@ -120,11 +153,27 @@ def setup_scene(class_name: str = "nut", n_objects: int = 5, cfg_run: dict | Non
         n_sphere_dir=int(cfg_run.get("cone_grasp_smapler_n_sphere_dir", 30)),
         approach_step=float(cfg_run.get("cone_grasp_smapler_approach_step", 0.002)),
     )
+    nocs = None
+    if canonical is not None and len(canonical.get("canonical_grasps", [])):
+        nocs = NocsTransferGraspSampler(
+            gripper, np.asarray(canonical["canonical_grasps"]),
+            np.asarray(canonical["canonical_grasp_scores"]),
+            score_larger_than=float(cfg_run.get("nocs_grasp_sampler_score_larger_than", 0.95)),
+            max_n_grasp=int(cfg_run.get("nocs_grasp_sampler_max_n_grasp", 10000)),
+        )
+    # the place fixture is a huge-mass body of the scene, so insertion
+    # contact is simulated; it is an obstacle of the arm planners too
+    T_fix = np.eye(4, dtype=np.float32)
+    T_fix[:3, 3] = FIXTURE_POS
+    fix_pts_base = ((lib.surf_pts[fixture_idx].cpu().numpy() + FIXTURE_POS
+                     - base_in_world[:3, 3]) @ base_in_world[:3, :3])
     return EvalScene(class_name=class_name, n_objects=n_objects, instance=instance,
-                     n_inst=n_inst, fixture_idx=len(meshes) - 1, meshes=meshes, lib=lib,
+                     n_inst=n_inst, fixture_idx=fixture_idx, meshes=meshes, lib=lib,
                      pile_cfg=pile_cfg, env_bin=env_bin, H=H, W=W, K=K, cam=cam,
                      base_in_world=base_in_world, cam_in_base=cam_in_base,
-                     gripper=gripper, cone=cone, device=dev)
+                     gripper=gripper, cone=cone, device=dev, canonical=canonical, nocs=nocs,
+                     sym=get_symmetry_tfs(class_name), T_fix=T_fix,
+                     fix_pts_base=fix_pts_base)
 
 
 def _sync(dev: torch.device) -> None:
@@ -171,15 +220,35 @@ def make_round_pile(scene: EvalScene, rng: np.random.Generator,
         _sync(dev)
         t1 = time.perf_counter()
         timings["reset_s"] = t1 - t0
-    state = env_pile.settle_fixed(state, params, scene.lib, scene.env_bin,
-                                  scene.pile_cfg, settle_steps)
+    state = settle_keep_fixture(scene, state, params, settle_steps)
     if timings is not None:
         _sync(dev)
         timings["settle_s"] = time.perf_counter() - t1
-    # the out-of-bin cull must not deactivate the fixture
+    return state, params
+
+
+def settle_keep_fixture(scene: EvalScene, state: SceneState, params: SceneParams,
+                        n_steps: int) -> SceneState:
+    """A fixed settle whose out-of-bin cull leaves the fixture active."""
+    state = env_pile.settle_fixed(state, params, scene.lib, scene.env_bin, scene.pile_cfg,
+                                  n_steps)
     active = state.active.clone()
-    active[n] = True
-    return state.replace(active=active), params
+    active[scene.n_objects] = True
+    return state.replace(active=active)
+
+
+@dataclass
+class Found:
+    """The first segment whose candidate set is non-empty."""
+
+    mask: np.ndarray  # (H, W) the segment's pixels
+    target: int  # the body it belongs to
+    pts: np.ndarray  # (M, 3) its points, camera frame
+    nrm: np.ndarray  # (M, 3) their normals
+    bg_m: np.ndarray  # (H, W) visible pixels of other bodies and the env
+    nocs_pose: np.ndarray  # (4, 4) centered NUNOCS -> camera
+    grasps_cam: np.ndarray  # (G, 4, 4) valid candidates, camera frame
+    prov: np.ndarray  # (G,) 0 = cone sampler, 1 = NOCS transfer
 
 
 @dataclass
@@ -187,26 +256,43 @@ class AttemptFront:
     """What one attempt's front half produced."""
 
     out: dict  # the render: depth, seg, xyz, normal, nocs, rgb (tensors)
-    # (segment mask, target body, its points, normals, candidate grasps in
-    # the camera frame, provenance) of the first segment with candidates
-    found: tuple | None
-    # one entry per segment tried: seg id, candidate count G, the (G,)
-    # valid mask, the valid count and the filter's rejection counters
+    found: Found | None
+    # one entry per segment tried: seg id, then per sampler ("cone", and
+    # "nocs" with a canonical) the candidate count, the valid mask, the
+    # valid count and the filter's rejection counters
     tried: list
-    # wall seconds of the render, the occupancy fills and the sample+filter
-    # calls, each read where the host already waits for the device
+    # wall seconds of the render, the occupancy fills and the two samplers'
+    # sample+filter calls, each read where the host already waits for the
+    # device
     timings: dict
 
-    @property
-    def fstats(self) -> dict | None:
-        return self.tried[-1]["stats"] if self.found is not None else None
+
+def _filtered(poses: torch.Tensor, valid: torch.Tensor, stats: dict) -> dict:
+    """One sampler's filter call: candidate count, valid mask, the valid
+    candidates (camera frame) and the rejection counters, on the host."""
+    cand = compact_valid(poses, valid)
+    return {"n_candidates": int(poses.shape[0]), "valid": valid.cpu().numpy(), "cand": cand,
+            "n_valid": len(cand), "stats": {k: int(v) for k, v in stats.items()}}
 
 
-def oracle_cone_attempt(scene: EvalScene, state: SceneState, params: SceneParams,
-                        rng: np.random.Generator, generator: torch.Generator) -> AttemptFront:
-    """One attempt, oracle perception and the cone sampler: render, try the
-    ground-truth segments from largest to smallest, and return at the first
-    one whose filtered candidate set is non-empty."""
+def oracle_nocs_pose(scene: EvalScene, state: SceneState, params: SceneParams,
+                     target: int) -> np.ndarray:
+    """The oracle 9D pose of a body: centered NUNOCS -> camera, from its
+    simulated pose and its mesh's bounding box at its scale."""
+    T_wc = np.linalg.inv(scene.cam)
+    ob_in_cam = T_wc @ tf.pose_from_qt(state.quat[target], state.pos[target]).cpu().numpy()
+    s = float(params.scale[target])
+    T_nocs = to_nunocs_transform(scene.meshes[int(params.shape_id[target])].vertices * s)
+    return (ob_in_cam @ np.linalg.inv(T_nocs)).astype(np.float32)
+
+
+def oracle_attempt(scene: EvalScene, state: SceneState, params: SceneParams,
+                   rng: np.random.Generator, generator: torch.Generator) -> AttemptFront:
+    """One attempt's front half in oracle perception: render, try the
+    ground-truth segments from largest to smallest, and per segment build
+    the background cloud, the oracle NUNOCS pose and the cone (and, with a
+    canonical, NOCS-transfer) candidates; return at the first segment where
+    their union is non-empty."""
     n, dev, H, W = scene.n_objects, scene.device, scene.H, scene.W
     active = state.active[:n].cpu().numpy()
     t0 = time.perf_counter()
@@ -217,7 +303,7 @@ def oracle_cone_attempt(scene: EvalScene, state: SceneState, params: SceneParams
     xyz = out["xyz"].cpu().numpy()
     normal = out["normal"].cpu().numpy()
     timings = {"render_s": time.perf_counter() - t0, "occupancy_s": 0.0,
-               "sample_filter_s": 0.0}
+               "sample_filter_s": 0.0, "nocs_filter_s": 0.0}
 
     min_px = max(20, (H * W) // 2500)
     seg_ids = sorted((i for i in range(n) if active[i]), key=lambda i: -(seg_body == i).sum())
@@ -244,22 +330,542 @@ def oracle_cone_attempt(scene: EvalScene, state: SceneState, params: SceneParams
             bg = np.full((1, 3), 999.0, np.float32)
         elif len(bg) > MAX_BACKGROUND_PTS:
             bg = bg[rng.choice(len(bg), MAX_BACKGROUND_PTS, replace=False)]
+        nocs_pose = oracle_nocs_pose(scene, state, params, sid)
 
         n_sub = min(len(pts), MAX_COLLISION_PTS)
         ids = rng.choice(len(pts), n_sub, replace=False)
-        poses_c, valid_c, stats = scene.cone.sample_grasps(
+        bg_t = torch.as_tensor(bg, device=dev)
+        bg_mask = torch.ones(len(bg), dtype=torch.bool, device=dev)
+        cone = _filtered(*scene.cone.sample_grasps(
             torch.as_tensor(pts[ids], device=dev), torch.as_tensor(nrm[ids], device=dev),
-            background_cloud=torch.as_tensor(bg, device=dev),
-            background_mask=torch.ones(len(bg), dtype=torch.bool, device=dev),
-            generator=generator, cam_in_world=scene.cam_in_base, filter_ik=True,
-            adjust_depth=True)
-        valid = valid_c.cpu().numpy()
-        cand = compact_valid(poses_c.cpu().numpy(), valid)
-        timings["sample_filter_s"] += time.perf_counter() - t1
-        tried.append({"seg": int(sid), "n_candidates": int(poses_c.shape[0]),
-                      "valid": valid, "n_valid": len(cand),
-                      "stats": {k: int(v) for k, v in stats.items()}})
-        if len(cand):
-            found = (m, sid, pts, nrm, cand, np.zeros(len(cand), np.int32))
+            background_cloud=bg_t, background_mask=bg_mask, generator=generator,
+            cam_in_world=scene.cam_in_base, filter_ik=True, adjust_depth=True))
+        t2 = time.perf_counter()
+        timings["sample_filter_s"] += t2 - t1
+        entry = {"seg": int(sid), "cone": cone, "nocs": None}
+        cand, prov = [cone["cand"]], [np.zeros(cone["n_valid"], np.int32)]
+        if scene.nocs is not None:
+            nocs = _filtered(*scene.nocs.sample_grasps(
+                nocs_pose=torch.as_tensor(nocs_pose, device=dev),
+                symmetry_tfs=scene.sym, background_cloud=bg_t, background_mask=bg_mask,
+                collision_cloud=pts[ids], collision_mask=np.ones(n_sub, bool),
+                cam_in_world=scene.cam_in_base, filter_ik=True, adjust_depth=True))
+            timings["nocs_filter_s"] += time.perf_counter() - t2
+            entry["nocs"] = nocs
+            cand.append(nocs["cand"])
+            prov.append(np.ones(nocs["n_valid"], np.int32))
+        tried.append(entry)
+        grasps_cam = np.concatenate(cand)
+        if len(grasps_cam):
+            found = Found(mask=m, target=int(sid), pts=pts, nrm=nrm, bg_m=bg_m,
+                          nocs_pose=nocs_pose, grasps_cam=grasps_cam,
+                          prov=np.concatenate(prov))
             return AttemptFront(out=out, found=found, tried=tried, timings=timings)
     return AttemptFront(out=out, found=None, tried=tried, timings=timings)
+
+
+# ---------------------------------------------------------------------------
+# Scoring
+# ---------------------------------------------------------------------------
+
+
+def grasp_affordance(canonical: dict, nocs_pose: np.ndarray, grasps_cam: np.ndarray,
+                     width: float, spec: GripperSpec, device=None) -> np.ndarray:
+    """P(T|G) of each grasp (G, 4, 4): the mean canonical affordance over
+    the canonical points the fingers would touch at opening ``width``, 0
+    where they touch none.  All grasps in one batch."""
+    dev = resolve_device(device)
+    pts_nocs = canonical["canonical_cloud"]
+    aff = torch.as_tensor(canonical["canonical_affordance"], device=dev)
+    pts_cam = torch.as_tensor(pts_nocs @ nocs_pose[:3, :3].T + nocs_pose[:3, 3], device=dev)
+    g = torch.as_tensor(grasps_cam, device=dev)
+    pg = (pts_cam[None] - g[:, None, :3, 3]) @ g[:, :3, :3]  # (G, C, 3)
+    m1, m2 = finger_contact_points(pg, torch.tensor(width, device=dev), spec,
+                                   surface_tol=0.004)
+    m = (m1 | m2).float()
+    cnt = m.sum(dim=-1)
+    mean = (m * aff).sum(dim=-1) / torch.clamp(cnt, min=1.0)
+    return torch.where(cnt > 0, mean, 0.0).cpu().numpy().astype(np.float32)
+
+
+@dataclass
+class Scores:
+    p_T_given_G: np.ndarray
+    p_G: np.ndarray
+    p_T_G: np.ndarray
+    eng: np.ndarray  # engagement depth in [0, 1]
+    ok: np.ndarray  # passes the thresholds and is viable
+    order: list  # candidate indices in the order the pick gate tries them
+
+
+def score_candidates(scene: EvalScene, cfg_run: dict, found: Found) -> Scores:
+    """P(T|G) from the canonical codebook (1 without one), P(G) from the
+    analytic wrench quality, the thresholds on P(G), P(T|G) and P(T,G), and
+    the order: threshold-passing viable candidates first, by P(T,G) to two
+    decimals and then engagement depth, then the rest in the same order."""
+    dev = scene.device
+    grasps_cam = found.grasps_cam
+    canonical = scene.canonical
+    if canonical is not None and canonical["canonical_affordance"].any():
+        p_T_given_G = grasp_affordance(canonical, found.nocs_pose, grasps_cam, width=0.012,
+                                       spec=scene.gripper.spec, device=dev)
+    else:
+        p_T_given_G = np.ones(len(grasps_cam), np.float32)
+    pts = torch.as_tensor(found.pts, device=dev)
+    g = torch.as_tensor(grasps_cam, device=dev)
+    q = parallel_jaw_quality(pts, torch.as_tensor(found.nrm, device=dev), g,
+                             scene.gripper.spec).cpu().numpy()
+    p_G = np.clip(q / 0.3, 0.0, 1.0).astype(np.float32)
+    p_T_G = p_T_given_G * p_G
+
+    ok = ((p_G >= cfg_run.get("p_G_thres", 0.5))
+          & (p_T_given_G >= cfg_run.get("p_T_given_G_thres", 0.5))
+          & (p_T_G >= cfg_run.get("p_T_G_thres", 0.1)))
+    if not ok.any():
+        ok = p_T_G >= 0  # best-effort pick (keep clearing the bin)
+    eng = engagement_depth(pts, g, scene.gripper.spec).cpu().numpy()
+    # geometric viability outranks the scores: a grasp whose captured
+    # surface sits < ~3.6 mm inside the fingertip plane closes on air
+    viable = eng >= 0.08
+    srt = np.lexsort((-eng, -np.round(p_T_G, 2), ~viable))
+    ok = ok & viable
+    order = [i for i in srt if ok[i]] + [i for i in srt if not ok[i]]
+    return Scores(p_T_given_G=p_T_given_G, p_G=p_G, p_T_G=p_T_G, eng=eng, ok=ok, order=order)
+
+
+# ---------------------------------------------------------------------------
+# Pick: IK + descent + lift + RRT over the best candidates, then the arm
+# ---------------------------------------------------------------------------
+
+
+def obstacles_in_base(scene: EvalScene, xyz: np.ndarray, bg_m: np.ndarray,
+                      rng: np.random.Generator) -> np.ndarray:
+    """The planners' obstacle cloud in the robot base frame: up to 1,024
+    visible non-target points (the wrist necessarily comes within capsule
+    radius of the object it grasps) and the fixture's surface points."""
+    obs_cam = xyz[bg_m]
+    if len(obs_cam) > MAX_OBSTACLE_PTS:
+        obs_cam = obs_cam[rng.choice(len(obs_cam), MAX_OBSTACLE_PTS, replace=False)]
+    cib = scene.cam_in_base.cpu().numpy()
+    obs_base = obs_cam @ cib[:3, :3].T + cib[:3, 3]
+    return np.concatenate([obs_base, scene.fix_pts_base]).astype(np.float32)
+
+
+def _lerp_poses(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    return np.stack([a * (1 - s) + b * s for s in np.linspace(0, 1, 5)])
+
+
+def plan_pick(scene: EvalScene, grasps_cam: np.ndarray, order: list, obs_base: np.ndarray,
+              seed: int):
+    """Iterate the candidates in ``order`` (the first 12) until one has IK
+    at the pregrasp (10 cm back along the approach) and the grasp, a
+    Cartesian descent and straight-up lift, and an RRT path from home to
+    the pregrasp.  Returns (pick, (path, descent qs, lift qs), n_ik_fail,
+    n_plan_fail); pick is None when no candidate passes."""
+    dev = scene.device
+    ee_in_grasp = scene.gripper.ee_in_grasp
+    base_inv = np.linalg.inv(scene.base_in_world)
+    rrt = planner.RRTConnect(obs_base, floor_z=-0.04, seed=seed, device=dev)
+    tries = list(order[:PICK_TRIES])
+    ee_pre, ee_goal = [], []
+    for i in tries:
+        g_base = (base_inv @ scene.cam @ grasps_cam[i]).astype(np.float32)
+        # the pregrasp is 10 cm back along the approach; the grasp itself is
+        # reached by the Cartesian descent
+        pre = g_base.copy()
+        pre[:3, 3] -= 0.10 * pre[:3, 0]
+        ee_pre.append(pre @ ee_in_grasp)
+        ee_goal.append(g_base @ ee_in_grasp)
+    ee_pre, ee_goal = np.reshape(ee_pre, (-1, 4, 4)), np.reshape(ee_goal, (-1, 4, 4))
+    # the IK of every tried pregrasp and grasp in one device call
+    q_best, found_best = iiwa.ik_best(torch.as_tensor(np.concatenate([ee_pre, ee_goal]),
+                                                      device=dev))
+    q_best, found_best = q_best.cpu().numpy(), found_best.cpu().numpy()
+    n = len(tries)
+    n_ik_fail = n_plan_fail = 0
+    for k, i in enumerate(tries):
+        if not (found_best[k] and found_best[n + k]):
+            n_ik_fail += 1
+            continue
+        q_pre = q_best[k]
+        qs_d, ok_d = planner.plan_cartesian_waypoints(
+            _lerp_poses(ee_pre[k], ee_goal[k]), q_seed=q_pre, device=dev)
+        if not ok_d:
+            n_ik_fail += 1
+            continue
+        ee_lift = ee_goal[k].copy()
+        ee_lift[:3, 3] += [0.0, 0.0, LIFT_HEIGHT]
+        qs_l, ok_l = planner.plan_cartesian_waypoints(
+            _lerp_poses(ee_goal[k], ee_lift), q_seed=qs_d[-1], device=dev)
+        if not ok_l:
+            n_ik_fail += 1
+            continue
+        path = rrt.plan(Q_HOME, q_pre, max_iter=RRT_MAX_ITER)
+        if path is not None:
+            return i, (np.stack(path), qs_d, qs_l), n_ik_fail, n_plan_fail
+        n_plan_fail += 1
+    return None, None, n_ik_fail, n_plan_fail
+
+
+def pick_schedule(pick_plan) -> np.ndarray:
+    """The pick's joint schedule: RRT path and descent resampled to the
+    approach, the grasp config held through close and hold, the lift."""
+    path, qs_d, qs_l = pick_plan
+    app = np.concatenate([simarm.resample_traj(path, N_APP - 30),
+                          simarm.resample_traj(qs_d, 30)])
+    return np.concatenate([
+        app, np.repeat(app[-1][None], CLOSE_STEPS + LIFT_STEPS, axis=0),
+        simarm.resample_traj(qs_l, N_LIFT_A)]).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Place
+# ---------------------------------------------------------------------------
+
+
+def _trans(t) -> np.ndarray:
+    T = np.eye(4, dtype=np.float32)
+    T[:3, 3] = t
+    return T
+
+
+def plan_place(scene: EvalScene, ob_in_grasp: np.ndarray, q_cur: np.ndarray,
+               obs_base: np.ndarray, seed: int, verbose: bool = False):
+    """Plan the arm-executed place: over the category's symmetries, the
+    first orientation whose pre-place and place tool poses have IK, whose
+    Cartesian insertion descent has IK, and whose pre-place config an RRT
+    reaches from ``q_cur``.  The fallback ladder tries up to 6 IK branches
+    of the pre-place pose, and plans a branch the observed cloud blocks
+    again with no obstacles and no floor.
+    Returns the place schedule (T, 7) or None."""
+    dev = scene.device
+    pre_t, place_t = es.TASK_POSES[scene.class_name]
+    base_inv = np.linalg.inv(scene.base_in_world)
+    ee_in_grasp = scene.gripper.ee_in_grasp
+    inv_oig = np.linalg.inv(np.asarray(ob_in_grasp))
+    rrt = planner.RRTConnect(obs_base, floor_z=-0.04, seed=seed + 77, device=dev)
+    rrt_free = planner.RRTConnect(np.float32([[10.0, 10.0, 10.0]]), floor_z=-10.0,
+                                  seed=seed + 78, device=dev)
+    fails = {"ik_pre": 0, "ik_place": 0, "descent": 0, "rrt": 0,
+             "relax_start": 0, "relax_goal": 0, "relax_iter": 0}
+    sym = np.asarray(scene.sym, np.float32)
+    ee_pre, ee_place = [], []
+    for S in sym:
+        O_pre = scene.T_fix @ _trans(pre_t) @ S
+        O_place = scene.T_fix @ _trans(place_t) @ S
+        ee_pre.append((base_inv @ O_pre @ inv_oig @ ee_in_grasp).astype(np.float32))
+        ee_place.append((base_inv @ O_place @ inv_oig @ ee_in_grasp).astype(np.float32))
+    ee_pre, ee_place = np.stack(ee_pre), np.stack(ee_place)
+    # the IK of every orientation in one device call each
+    ee_pre_t = torch.as_tensor(ee_pre, device=dev)
+    q_pre_all, ok_pre = (x.cpu().numpy() for x in iiwa.ik_best(ee_pre_t))
+    ok_place = iiwa.ik_best(torch.as_tensor(ee_place, device=dev))[1].cpu().numpy()
+    qs_all, val_all = (x.cpu().numpy() for x in iiwa.ik(ee_pre_t))
+    plan = None
+    for s in range(len(sym)):
+        if not ok_pre[s]:
+            fails["ik_pre"] += 1
+            continue
+        if not ok_place[s]:
+            fails["ik_place"] += 1
+            continue
+        branches = [q_pre_all[s]]
+        qs = qs_all[s][val_all[s]]
+        near = np.argsort(np.linalg.norm(qs - np.asarray(q_cur)[None], axis=1))
+        for q in qs[near[:8]]:
+            if all(np.linalg.norm(q - b) > 1e-3 for b in branches):
+                branches.append(q)
+        branches = branches[:6]
+        descent = _lerp_poses(ee_pre[s], ee_place[s])
+        for q_pre_b in branches:
+            qs_d, okd = planner.plan_cartesian_waypoints(descent, q_seed=q_pre_b, device=dev)
+            if not okd:
+                fails["descent"] += 1
+                break  # a waypoint with no IK solution: branch-independent
+            path = rrt.plan(np.asarray(q_cur), q_pre_b, max_iter=RRT_MAX_ITER)
+            if path is None:
+                path = rrt_free.plan(np.asarray(q_cur), q_pre_b, max_iter=RRT_MAX_ITER)
+                if path is None:
+                    sg = rrt_free._free(np.stack([np.asarray(q_cur), q_pre_b]))
+                    key = "relax_start" if not sg[0] else (
+                        "relax_goal" if not sg[1] else "relax_iter")
+                    fails[key] += 1
+            if path is None:
+                fails["rrt"] += 1
+                continue
+            plan = (np.stack(path), qs_d)
+            break
+        if plan is not None:
+            break
+    if plan is None:
+        if verbose:
+            print("    place: no IK-feasible/plannable orientation among "
+                  f"{len(sym)} symmetries (gate fails: {fails})")
+        return None
+    path, qs_d = plan
+    move = np.concatenate([simarm.resample_traj(path, N_MOVE_P - 40),
+                           simarm.resample_traj(qs_d, 40)]).astype(np.float32)
+    return np.concatenate([move, np.repeat(move[-1][None], N_DROP_P, axis=0)])
+
+
+def execute_place(scene: EvalScene, state: SceneState, params: SceneParams, target: int,
+                  sched: np.ndarray, ob_in_grasp: torch.Tensor, width: torch.Tensor,
+                  grip_center: torch.Tensor, verbose: bool = False):
+    """Step the place schedule in the scene and check the drop against the
+    category's success bands.  Returns (placed, state after the drop)."""
+    dev = scene.device
+    place_t = es.TASK_POSES[scene.class_name][1]
+    ee_in_grasp = torch.as_tensor(scene.gripper.ee_in_grasp, device=dev)
+    base = torch.as_tensor(scene.base_in_world, device=dev)
+    final, ob_pose_final, place_traj = simarm.execute_place_arm(
+        scene.lib, state, params, scene.env_bin, target, torch.as_tensor(sched, device=dev),
+        base, ee_in_grasp, ob_in_grasp, width, scene.gripper.spec, n_move=N_MOVE_P,
+        n_drop=N_DROP_P, center=grip_center)
+    T_fix_inv = torch.as_tensor(np.linalg.inv(scene.T_fix), device=dev)
+    ob_in_fix = T_fix_inv @ ob_pose_final
+    placed = bool(es.place_success(scene.class_name, ob_in_fix,
+                                   torch.as_tensor(place_t, dtype=torch.float32, device=dev)))
+    if verbose and not placed:
+        oif = ob_in_fix.cpu().numpy()
+        G_rel = simarm.grasp_pose_of(torch.as_tensor(sched[N_MOVE_P - 1], device=dev), base,
+                                     ee_in_grasp).cpu().numpy()
+        rel_pose = np.linalg.inv(scene.T_fix) @ G_rel @ ob_in_grasp.cpu().numpy()
+        print(f"    place: dropped at fixture-frame t={oif[:3, 3].round(4)}"
+              f" z-axis={oif[:3, 2].round(3)} (want xy<=6mm of "
+              f"{place_t[:2]}, z<={es._SUCCESS_Z_MAX[scene.class_name]}, upright)\n"
+              f"           fixture body at {final.pos[-1].cpu().numpy().round(4)}, release "
+              f"pose t={rel_pose[:3, 3].round(4)} z-axis={rel_pose[:3, 2].round(3)}")
+        tp = place_traj[0].cpu().numpy()[N_MOVE_P::10] - scene.T_fix[:3, 3]
+        print("           drop xy-dev:",
+              np.linalg.norm(tp[:, :2] - place_t[None, :2], axis=1).round(4),
+              "z:", tp[:, 2].round(3))
+    return placed, final
+
+
+# ---------------------------------------------------------------------------
+# Main loop
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class EvalCounters:
+    num_objects: int = 0
+    num_attempts: int = 0
+    num_stable_grasp: int = 0
+    num_task_grasp_succ: int = 0
+
+
+_LEARNED = "learned perception is not ported: ROADMAP.md §1, 'Learned perception'"
+
+
+def _check_mode(oracle, predicters, obj_path, arm_dynamics, use_arm, arm_exec):
+    if not oracle or predicters:
+        raise NotImplementedError(_LEARNED)
+    if obj_path:
+        raise NotImplementedError(
+            "the grid-SDF geometry (obj_path) is not ported: ROADMAP.md §1, "
+            "'The grid geometry path'")
+    if arm_dynamics:
+        raise NotImplementedError(
+            "articulated arm dynamics are not ported: ROADMAP.md §1, 'Rest' (kin/dynamics.py)")
+    if not (use_arm and arm_exec):
+        raise NotImplementedError(
+            "the floating-gripper baseline (use_arm=0 or arm_exec=0) is not ported: "
+            "ROADMAP.md §1, 'The floating-gripper baseline'")
+
+
+class _Stages:
+    """Wall seconds by stage, summed into ``timings`` (synchronising the
+    device at each stage end), or nothing when ``timings`` is None."""
+
+    def __init__(self, timings: dict | None, dev: torch.device):
+        self.timings, self.dev = timings, dev
+        self.t0 = time.perf_counter()
+
+    def add(self, parts: dict | None):
+        """Add stage times measured elsewhere, and restart the clock."""
+        for k, v in (parts or {}).items():
+            self.timings[k] = self.timings.get(k, 0.0) + v
+        self.t0 = time.perf_counter()
+
+    def lap(self, key: str):
+        if self.timings is None:
+            return
+        _sync(self.dev)
+        t = time.perf_counter()
+        self.timings[key] = self.timings.get(key, 0.0) + t - self.t0
+        self.t0 = t
+
+
+def simulate_grasp_rounds(class_name: str = "nut", n_rounds: int = 2,
+                          n_objects: int = 5, cfg_run: dict | None = None,
+                          oracle: bool = True, canonical: dict | None = None,
+                          predicters: dict | None = None, seed: int = 0,
+                          max_attempts_per_round: int = 8,
+                          render_hw=(384, 512), verbose: bool = True,
+                          metrics_path: str | None = None, use_arm: bool = True,
+                          arm_exec: bool = True, instance: int | None = None,
+                          obj_path: str | None = None, arm_dynamics: bool = False,
+                          device=None, timings: dict | None = None) -> EvalCounters:
+    """The closed-loop eval: ``n_rounds`` piles of ``n_objects``, up to
+    ``max_attempts_per_round`` pick-and-place attempts each.  Returns the
+    tallies.  With a ``timings`` dict, the wall seconds of each stage are
+    summed into it (the device synchronised at each stage end)."""
+    _check_mode(oracle, predicters, obj_path, arm_dynamics, use_arm, arm_exec)
+    dev = resolve_device(device)
+    mlog = MetricsLogger(metrics_path, run="eval", class_name=class_name,
+                         seed=seed, oracle=oracle)
+    cfg_run = cfg_run or load_config("config_run.yml")
+    stages = _Stages(timings, dev)
+    scene = setup_scene(class_name, n_objects, cfg_run, render_hw, instance,
+                        canonical=canonical, device=dev)
+    stages.lap("setup_s")
+    if canonical is None or not canonical["canonical_affordance"].any():
+        print("WARNING: canonical has no affordance codebook — P(T|G) fixed at 1.0; "
+              "grasp selection is TASK-BLIND")
+    n = n_objects
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    spec = scene.gripper.spec
+    ee_in_grasp = torch.as_tensor(scene.gripper.ee_in_grasp, device=dev)
+    base = torch.as_tensor(scene.base_in_world, device=dev)
+    counters = EvalCounters()
+
+    for rnd in range(n_rounds):
+        pile_t = {} if timings is not None else None
+        state, params = make_round_pile(scene, rng, gen, SETTLE_STEPS, timings=pile_t)
+        stages.add(pile_t)
+        counters.num_objects += int(state.active[:n].sum())
+
+        for attempt in range(max_attempts_per_round):
+            if not bool(state.active[:n].any()):
+                break
+            front = oracle_attempt(scene, state, params, rng, gen)
+            stages.add(front.timings if timings is not None else None)
+            for t in front.tried:
+                mlog.event("filter", round=rnd, attempt=attempt, seg=t["seg"],
+                           n_valid=t["cone"]["n_valid"], **t["cone"]["stats"])
+            if front.found is None:
+                if verbose:
+                    print(f"round {rnd} attempt {attempt}: no grasp candidates on any segment")
+                break
+            f = front.found
+            target = f.target
+            if len(f.grasps_cam) > MAX_CANDIDATES:
+                sel = rng.choice(len(f.grasps_cam), MAX_CANDIDATES, replace=False)
+                f.grasps_cam, f.prov = f.grasps_cam[sel], f.prov[sel]
+
+            sc = score_candidates(scene, cfg_run, f)
+            stages.lap("scoring_s")
+
+            xyz = front.out["xyz"].cpu().numpy()
+            obs_base = obstacles_in_base(scene, xyz, f.bg_m, rng)
+            pick, pick_plan, n_ik_fail, n_plan_fail = plan_pick(
+                scene, f.grasps_cam, sc.order, obs_base, seed)
+            stages.lap("pick_planning_s")
+            if pick is None:
+                mlog.event("plan_fail", round=rnd, attempt=attempt,
+                           n_candidates=len(sc.order), n_ik_fail=n_ik_fail,
+                           n_plan_fail=n_plan_fail)
+                if verbose:
+                    print(f"round {rnd} attempt {attempt}: no reachable/plannable grasp among "
+                          f"{min(len(sc.order), PICK_TRIES)} (ik/descent fails {n_ik_fail}, "
+                          f"rrt fails {n_plan_fail})")
+                break
+
+            # --- execute the pick through the arm ---
+            counters.num_attempts += 1
+            sched = pick_schedule(pick_plan)
+            picked, state_after, ob_in_grasp, w_f, c_f, disturb = simarm.execute_pick_arm(
+                scene.lib, state, params, scene.env_bin, target,
+                torch.as_tensor(sched, device=dev), base, ee_in_grasp, spec,
+                n_app=N_APP, n_close=CLOSE_STEPS, n_hold=LIFT_STEPS)
+            picked, disturb = bool(picked), float(disturb)
+            stages.lap("pick_execution_s")
+            placed = False
+            if picked:
+                counters.num_stable_grasp += 1
+                place_sched = plan_place(scene, ob_in_grasp.cpu().numpy(), sched[-1],
+                                         obs_base, seed, verbose)
+                stages.lap("place_planning_s")
+                if place_sched is not None:
+                    placed, state_after = execute_place(
+                        scene, state_after, params, target, place_sched, ob_in_grasp, w_f,
+                        c_f, verbose)
+                    stages.lap("place_execution_s")
+                slip = float(torch.linalg.vector_norm(
+                    ob_in_grasp[:3, 3] - torch.tensor([0.02, 0.0, 0.0], device=dev)))
+                mlog.event("place", round=rnd, attempt=attempt, placed=placed, slip=slip)
+                if placed:
+                    counters.num_task_grasp_succ += 1
+            # remove the attempted object from the pile (placed or scattered)
+            active = state_after.active.clone()
+            active[target] = not picked
+            state = settle_keep_fixture(scene, state_after.replace(active=active), params,
+                                        RESETTLE_STEPS)
+            stages.lap("resettle_s")
+            mlog.event("attempt", round=rnd, attempt=attempt, target=target,
+                       n_candidates=len(f.grasps_cam), picked=picked, placed=placed,
+                       disturbance=disturb, p_G=float(sc.p_G[pick]),
+                       p_T_given_G=float(sc.p_T_given_G[pick]), p_T_G=float(sc.p_T_G[pick]))
+            if verbose:
+                print(f"round {rnd} attempt {attempt}: target {target} "
+                      f"picked={picked} placed={placed if picked else '-'} "
+                      f"p_T_G={sc.p_T_G[pick]:.2f}")
+                if not picked:
+                    t = ob_in_grasp[:3, 3].cpu().numpy()
+                    print(f"    pick diag: width {float(w_f) * 1e3:.1f} mm, ob_in_grasp t "
+                          f"[{t[0] * 1e3:.1f} {t[1] * 1e3:.1f} {t[2] * 1e3:.1f}] mm, "
+                          f"disturb {disturb * 1e3:.1f} mm")
+
+    mlog.event("tally", **counters.__dict__)
+    mlog.close()
+    return counters
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--class_name", default=None)
+    ap.add_argument("--n_rounds", type=int, default=2)
+    ap.add_argument("--n_objects", type=int, default=5)
+    ap.add_argument("--canonical", default=None)
+    ap.add_argument("--artifacts", default=None,
+                    help="learned perception (not ported: oracle mode only)")
+    ap.add_argument("--oracle", type=int, default=1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--metrics", default=None, help="JSONL metrics path")
+    ap.add_argument("--use_arm", type=int, default=1,
+                    help="gate grasps on IK reachability + RRT plannability")
+    ap.add_argument("--arm_exec", type=int, default=1,
+                    help="step the planned arm motion in the scene (pick AND place)")
+    ap.add_argument("--instance", type=int, default=None,
+                    help="pin the pile to one test instance at scale 1 (default from "
+                         "config_run.yml instance_index; -1 = mixed instances at jittered "
+                         "scales)")
+    ap.add_argument("--arm_dynamics", type=int, default=0)
+    ap.add_argument("--obj_path", default=None)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: the GPU; 'cpu' runs on the host)")
+    args = ap.parse_args(argv)
+
+    cfg_run = load_config("config_run.yml")
+    class_name = args.class_name or cfg_run.get("class_name", "nut")
+    if args.artifacts:
+        raise NotImplementedError(_LEARNED)
+    canonical = dict(np.load(args.canonical)) if args.canonical else None
+    t0 = time.perf_counter()
+    c = simulate_grasp_rounds(class_name, args.n_rounds, args.n_objects, cfg_run,
+                              oracle=bool(args.oracle), canonical=canonical, seed=args.seed,
+                              metrics_path=args.metrics,
+                              use_arm=bool(args.use_arm), arm_exec=bool(args.arm_exec),
+                              instance=args.instance, obj_path=args.obj_path,
+                              arm_dynamics=bool(args.arm_dynamics), device=args.device)
+    print(f"num_objects={c.num_objects} num_attempts={c.num_attempts} "
+          f"num_stable_grasp={c.num_stable_grasp} "
+          f"num_task_grasp_succ={c.num_task_grasp_succ}")
+    print(f"wall_s={time.perf_counter() - t0:.1f}")
+    return c
+
+
+if __name__ == "__main__":
+    main()

@@ -25,7 +25,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from ..core import transforms as tf
-from ..device import resolve_device
+from ..device import constant, resolve_device
 from ..geom import csg as csglib
 from .types import SceneParams, SceneState, ShapeLib
 
@@ -318,7 +318,7 @@ def step(state: SceneState, params: SceneParams, lib: ShapeLib, env: StaticEnv,
     if narrowphase != "csg":
         raise NotImplementedError("only the CSG narrowphase is ported")
     dev = state.pos.device
-    g = torch.tensor([0.0, 0.0, gravity], device=dev)
+    g = constant((0.0, 0.0, gravity), torch.float32, dev)
     dynamic = state.active & (params.mass < STATIC_MASS)
     linvel = state.linvel + torch.where(dynamic[..., None], g * dt, 0.0)
     st = state.replace(linvel=linvel)

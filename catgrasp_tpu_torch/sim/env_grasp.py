@@ -1,14 +1,25 @@
-"""Parallel-jaw gripper geometry (``catgrasp_tpu/sim/env_grasp.py``).
+"""Parallel-jaw gripper in the scene (``catgrasp_tpu/sim/env_grasp.py``).
 
-The gripper lives in the GRASP frame: +x approach, ±y closing.  Only the
-geometry the grasp filter needs is ported so far; the closing law and the
-grasp rollout come with the pick-and-place half.
+The gripper lives in the GRASP frame: +x approach, ±y closing.  Ported: the
+geometry the grasp filter needs, the gripper as kinematic colliders, the
+per-finger force-limited closing law the arm executor steps, and the
+contact and collision tests of the eval's scoring.  The grasp rollout,
+``verify_grasp`` and ``perturbation_scores`` belong to grasp-DB generation
+and are not ported.
+
+Every quantity of the closing law stays a tensor (``torch.where`` in place
+of branches), so a caller that steps it once per engine step never waits
+for the device; only the phase (closing or not) is a Python bool.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
+
+from ..core import transforms as tf
+from ..device import constant
+from . import engine
 
 
 @dataclass(frozen=True)
@@ -34,14 +45,14 @@ class GripperSpec:
 
 
 def closing_channel_mask(pts_g, spec: GripperSpec, y_slack: float = 1e-3):
-    """Points (in the GRASP frame) inside the channel the fingers close
+    """Points (..., 3) (in the GRASP frame) inside the channel the fingers close
     through: |y| within the jaw opening, |z| within the finger depth, x
     between the palm bound (``init_bite``) and the fingertip plane.  Works on
     numpy arrays and tensors alike (elementwise ops only)."""
-    return ((abs(pts_g[:, 1]) <= spec.max_width / 2 + y_slack)
-            & (abs(pts_g[:, 2]) <= spec.finger_depth / 2)
-            & (pts_g[:, 0] <= spec.finger_len)
-            & (pts_g[:, 0] >= spec.init_bite))
+    return ((abs(pts_g[..., 1]) <= spec.max_width / 2 + y_slack)
+            & (abs(pts_g[..., 2]) <= spec.finger_depth / 2)
+            & (pts_g[..., 0] <= spec.finger_len)
+            & (pts_g[..., 0] >= spec.init_bite))
 
 
 def finger_boxes(width: torch.Tensor, spec: GripperSpec, center=0.0):
@@ -50,8 +61,7 @@ def finger_boxes(width: torch.Tensor, spec: GripperSpec, center=0.0):
     rigid on the wrist and does not ride the finger midline."""
     width = torch.as_tensor(width, dtype=torch.float32)
     t = spec.finger_thickness
-    center = torch.as_tensor(center, dtype=torch.float32, device=width.device) \
-        + torch.zeros_like(width)
+    center = torch.zeros_like(width) + center
     cy_pos = center + width / 2 + t / 2
     cy_neg = center - (width / 2 + t / 2)
     zero = torch.zeros_like(width)
@@ -63,12 +73,157 @@ def finger_boxes(width: torch.Tensor, spec: GripperSpec, center=0.0):
         ],
         dim=-2,
     )  # (..., 3 boxes, 3)
-    halves = torch.tensor(
-        [
-            [spec.finger_len / 2, t / 2, spec.finger_depth / 2],
-            [spec.finger_len / 2, t / 2, spec.finger_depth / 2],
-            [spec.palm_depth / 2, spec.max_width / 2 + t + 0.01, spec.finger_depth / 2 + 0.01],
-        ],
-        device=width.device,
+    halves = constant(
+        (
+            (spec.finger_len / 2, t / 2, spec.finger_depth / 2),
+            (spec.finger_len / 2, t / 2, spec.finger_depth / 2),
+            (spec.palm_depth / 2, spec.max_width / 2 + t + 0.01, spec.finger_depth / 2 + 0.01),
+        ),
+        torch.float32, width.device,
     )
     return centers, halves.expand(centers.shape)
+
+
+def gripper_env(T_grasp: torch.Tensor, width: torch.Tensor, center, vel_pos, vel_neg,
+                spec: GripperSpec, friction: float = 0.9, dt: float = engine.DT,
+                grip=False) -> engine.StaticEnv:
+    """Gripper as 3 kinematic world-frame boxes (finger+, finger-, palm).
+
+    ``vel_pos``/``vel_neg`` are the INWARD speeds of the +y / -y fingers
+    (positive = closing); the fingers are independent position-controlled
+    motors.  Each collider may deliver at most ``max_force * dt`` of normal
+    impulse a step; holding fingers (``grip``) get motor-backed static
+    friction, the palm never grips."""
+    dev = T_grasp.device
+    centers_g, halves = finger_boxes(width, spec, center)
+    R = T_grasp[:3, :3]
+    centers_w = centers_g @ R.T + T_grasp[:3, 3]
+    quats = tf.matrix_to_quat(R).expand(3, 4)
+    # closing velocity: finger+ moves -y_grasp, finger- moves +y_grasp
+    ydir = R[:, 1]
+    vel = torch.stack([-ydir * vel_pos, ydir * vel_neg, torch.zeros(3, device=dev)])
+    grip = constant((True, True, False), torch.bool, dev) & grip
+    return engine.StaticEnv(
+        center=centers_w,
+        half=halves,
+        quat=quats,
+        vel=vel,
+        friction=torch.full((3,), friction, device=dev),
+        enabled=torch.ones((3,), dtype=torch.bool, device=dev),
+        imp_budget=torch.full((3,), spec.max_force * dt, device=dev),
+        grip=grip,
+    )
+
+
+def _object_pen_per_finger(obj_pts_grasp: torch.Tensor, width, spec: GripperSpec,
+                           center=0.0):
+    """Per-finger SIGNED penetration along the closing axis of the extremal
+    in-channel object point past each finger's inner face (negative =
+    clearance): ``(pen_pos, pen_neg)``, -1e3 each when no point is in the
+    channel."""
+    in_ch = closing_channel_mask(obj_pts_grasp, spec)
+    y = obj_pts_grasp[:, 1]
+    f_pos = center + width / 2
+    f_neg = center - width / 2
+    pen_p = torch.amax(torch.where(in_ch, y - f_pos, float("-inf")))
+    pen_n = torch.amax(torch.where(in_ch, f_neg - y, float("-inf")))
+    any_ch = torch.any(in_ch)
+    return torch.where(any_ch, pen_p, -1e3), torch.where(any_ch, pen_n, -1e3)
+
+
+# first-contact latch threshold: just above the Baumgarte resting
+# penetration (engine.SLOP = 0.2 mm)
+CONTACT_TOL = 2.5e-4
+# touch-down speed (m/s): a free finger brakes near the object face and
+# creeps into contact at this speed
+LAND_SPEED = 0.02
+# squeeze speed (m/s): once both fingers have touched, penetration is driven
+# to max_squeeze_pen at this bounded speed
+SQUEEZE_SPEED = 0.05
+# grip press (m/s^2) of the holding finger motors during hold and transport
+PRESS_ACCEL = 100.0
+
+
+def closing_touched_init(device=None) -> torch.Tensor:
+    """Initial per-finger first-contact latch: (2,) bool, [touched_pos,
+    touched_neg]."""
+    return torch.zeros((2,), dtype=torch.bool, device=device)
+
+
+def closing_step(obj_pts_grasp: torch.Tensor, width: torch.Tensor, center: torch.Tensor,
+                 touched: torch.Tensor, closing: bool, spec: GripperSpec, dt: float):
+    """One tick of the force-limited closing law.
+
+    Each finger is an independent position-controlled motor with a sticky
+    first-contact latch (``touched``) and three regimes: free (never
+    touched: land at the object face, at most ``close_speed/2`` a second,
+    creeping the last of it at ``LAND_SPEED``), wall (touched, the other
+    free: hold, yield beyond ``max_squeeze_pen``) and squeeze (both touched:
+    drive own penetration to ``max_squeeze_pen`` at ``SQUEEZE_SPEED``).  The
+    width is floored at the in-channel object extent less the two-sided
+    allowance.  The latch updates every tick; the fingers move only while
+    ``closing``.
+
+    Returns ``(new_width, new_center, new_touched, v_pos, v_neg)``, v_* the
+    fingers' inward speeds for :func:`gripper_env`."""
+    pen_p, pen_n = _object_pen_per_finger(obj_pts_grasp, width, spec, center)
+    touched = touched | torch.stack([pen_p > CONTACT_TOL, pen_n > CONTACT_TOL])
+    if not closing:
+        zero = torch.zeros_like(width)
+        return width, center, touched, zero, zero
+    both = touched[0] & touched[1]
+    half_step = spec.close_speed * dt / 2
+    creep = LAND_SPEED * dt
+    sq_step = SQUEEZE_SPEED * dt
+
+    def advance(own_touched, own_pen):
+        free = torch.clamp(torch.clamp(-0.5 * own_pen, min=creep), max=half_step)
+        err = spec.max_squeeze_pen - own_pen
+        squeeze = torch.where(
+            err >= 0,
+            torch.clamp(err + creep, max=min(sq_step, half_step)),
+            -torch.clamp(-err, max=sq_step / 2))
+        wall = -torch.clamp(torch.clamp(-err, min=0.0), max=sq_step / 2)
+        return torch.where(~own_touched, free, torch.where(both, squeeze, wall))
+
+    df_p = advance(touched[0], pen_p)
+    df_n = advance(touched[1], pen_n)
+    # width floor: object channel extent minus the two-sided allowance (0
+    # when nothing is in the channel)
+    in_ch = closing_channel_mask(obj_pts_grasp, spec)
+    y = obj_pts_grasp[:, 1]
+    ymax = torch.amax(torch.where(in_ch, y, float("-inf")))
+    ymin = torch.amin(torch.where(in_ch, y, float("inf")))
+    extent = torch.where(torch.any(in_ch), ymax - ymin, 0.0)
+    min_width = torch.clamp(extent - 2.0 * spec.max_squeeze_pen, min=0.0)
+    # shrink the ADVANCES (retreats untouched) so that width_new >= min_width
+    cap_total = torch.clamp(width - min_width, min=0.0)
+    total = df_p + df_n
+    adv = torch.clamp(df_p, min=0.0) + torch.clamp(df_n, min=0.0)
+    excess = torch.clamp(total - cap_total, min=0.0)
+    shrink = torch.clamp(1.0 - excess / torch.clamp(adv, min=1e-9), min=0.0)
+    df_p = torch.where(df_p > 0, df_p * shrink, df_p)
+    df_n = torch.where(df_n > 0, df_n * shrink, df_n)
+    return (width - df_p - df_n, center - (df_p - df_n) / 2, touched,
+            df_p / dt, df_n / dt)
+
+
+def open_gripper_collision(obj_pts_grasp: torch.Tensor, spec: GripperSpec) -> torch.Tensor:
+    """Open-gripper collision test: any object point inside any gripper box
+    at full opening."""
+    dev = obj_pts_grasp.device
+    centers, halves = finger_boxes(torch.tensor(spec.max_width, device=dev), spec)
+    rel = obj_pts_grasp[:, None, :] - centers[None]
+    d, _ = engine.box_sdf_and_normal(rel, halves[None])
+    return torch.any(d < 0.0)
+
+
+def finger_contact_points(obj_pts_grasp: torch.Tensor, width, spec: GripperSpec,
+                          surface_tol: float = 0.002, center=0.0):
+    """Masks of object points (grasp frame, (..., C, 3)) in contact with the
+    +y and the -y finger's inner face: (mask_pos, mask_neg), (..., C)."""
+    x, y, z = obj_pts_grasp[..., 0], obj_pts_grasp[..., 1], obj_pts_grasp[..., 2]
+    within = (x >= 0.0) & (x <= spec.finger_len) & (torch.abs(z) <= spec.finger_depth / 2)
+    near_pos = torch.abs(y - (center + width / 2)) <= surface_tol
+    near_neg = torch.abs(y - (center - width / 2)) <= surface_tol
+    return within & near_pos, within & near_neg

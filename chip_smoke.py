@@ -24,16 +24,30 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    each ray's line meets beside the bounds over what a tile's cull keeps,
    where the kernel's time goes (its prologue alone, step budgets, no env
    boxes), and the tried tiles;
-6. a device-time profile (torch.profiler) of 20 settle steps and of one
-   attempt, by kernel; the attempt's own collision-gate inputs are recorded
-   and K1 is held against its plain version and timed on them (the whole
-   gate of one filter call: 2 launches);
-7. kernel K3 ``rollout_fused`` against its plain version at the throughput
+6. a device-time profile (torch.profiler) of 20 settle steps, of one
+   attempt's front half and of 20 arm-executed pick steps, by kernel; that
+   the pick executor (approach, close, hold, lift) and the place executor
+   (transport, release) never make the host wait for the device
+   (``torch.cuda.set_sync_debug_mode``); the attempt's own collision-gate
+   inputs are recorded and K1 is held against its plain version and timed
+   on them (the whole gate of one filter call: 2 launches);
+7. the pick-and-place path, once, at full width: one round of
+   ``simulate_grasp_rounds`` (nut, 8 objects, the canonical's
+   NOCS-transfer sampler, at most 2 attempts: oracle NUNOCS pose, cone and
+   NOCS candidates, scoring, IK + RRT, the arm-executed pick and place,
+   re-settle), with every launch count set to 0 just before and read just
+   after: the tallies, each attempt's outcome, the stage times; then K1
+   against its plain version on the NOCS-transfer gate's own inputs from
+   that round (68,148 poses): agreement, times, bound; and K2 against its
+   plain version on the round's last render (384x512, 8 nuts and the
+   fixture, 6 env boxes): the frame the round rendered through the kernel
+   against the plain march's, times, bound;
+8. kernel K3 ``rollout_fused`` against its plain version at the throughput
    entry point's shapes (10 bodies x 32 points, 5 bin boxes) on 128 scenes:
    1, 5 and 50 steps, two kernel runs bit for bit, then a batch with no
    contact for the whole call, a settled batch and a batch with every body
    active;
-8. the second path, once, at full width: ``catgrasp_tpu_torch.bench`` (1,024
+9. the second path, once, at full width: ``catgrasp_tpu_torch.bench`` (1,024
    scenes x 5 calls of 50 steps through K3 and once through the eager engine;
    the collision gate through K1; the IK gate; 9 batches of 8 frames through
    K2, one launch a batch) — again with every launch count set to 0 just
@@ -41,11 +55,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    at that path's own shapes: the hit matrix and two of the frames it
    computed, on its own inputs; K2's batch against each scene marched alone,
    its cull lists, times and tried tiles;
-9. K3's times on the 1,024-scene, 50-step call (kernel, wrapper, plain
+10. K3's times on the 1,024-scene, 50-step call (kernel, wrapper, plain
    version, eager engine) and its bound from that call's own contacts; the
    kernel's time with the iterations off, on settled piles and with every
    body active; its registers, shared memory and blocks an SM;
-10. a ``kernels`` JSON line, the card line, then ``{"ok": true, ...}``.
+11. a ``kernels`` JSON line, the card line, then ``{"ok": true, ...}``.
 
 It imports nothing of the JAX package.  Without a GPU it exits non-zero
 before printing any result.
@@ -345,8 +359,8 @@ def eval_gate(dev, scene, state, params):
 
     collision.box_hits_depths = recorder
     try:
-        rgs.oracle_cone_attempt(scene, state, params, np.random.default_rng(0),
-                                torch.Generator(device=dev).manual_seed(0))
+        rgs.oracle_attempt(scene, state, params, np.random.default_rng(0),
+                           torch.Generator(device=dev).manual_seed(0))
     finally:
         collision.box_hits_depths = entry
     if len(calls) < 2 or len(calls) % 2:
@@ -988,7 +1002,8 @@ def main_path(dev):
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(0)
     state, params = rgs.make_round_pile(scene, rng, gen, settle_steps=500, timings=times)
-    res = rgs.oracle_cone_attempt(scene, state, params, rng, gen)
+    res = rgs.oracle_attempt(scene, state, params, rng, gen)
+    tried = [t["cone"] | {"seg": t["seg"]} for t in res.tried]
     torch.cuda.synchronize()
     launches = {"box_hits": collision.box_hits.launches,
                 "march_csg": render_march.march_csg.launches,
@@ -998,30 +1013,30 @@ def main_path(dev):
     print("main path stage times (s, synchronised): "
           + json.dumps({k: round(v, 6) for k, v in times.items()}), flush=True)
     print(f"main path launches: {json.dumps(launches)}; bodies active after settle "
-          f"{state.active.int().tolist()}; segments tried {len(res.tried)}", flush=True)
-    for t in res.tried:
+          f"{state.active.int().tolist()}; segments tried {len(tried)}", flush=True)
+    for t in tried:
         s = t["stats"]
         print(f"  segment {t['seg']}: G={t['n_candidates']} candidates, {t['n_valid']} valid, "
               f"fstats {json.dumps(s)}", flush=True)
         total = s["n_approach_dir_rej"] + s["n_ik_rej"] + s["n_collision_rej"] + t["n_valid"]
         if total != t["n_candidates"]:
             fail(f"filter counters sum to {total}, not G={t['n_candidates']}")
-    if not res.tried:
+    if not tried:
         fail("no segment was large enough to sample")
     if res.found is None:
         fail("no segment yielded grasp candidates")
-    if res.tried[-1]["n_candidates"] != N_POSES:
-        fail(f"G={res.tried[-1]['n_candidates']}, expected {N_POSES}")
+    if tried[-1]["n_candidates"] != N_POSES:
+        fail(f"G={tried[-1]['n_candidates']}, expected {N_POSES}")
     print(f"K1 box_hits launches a filter call: "
-          f"{launches['box_hits'] / max(len(res.tried), 1):g}", flush=True)
-    if launches["box_hits"] != 2 * len(res.tried):
-        fail(f"box_hits launched {launches['box_hits']} times for {len(res.tried)} filter calls")
+          f"{launches['box_hits'] / max(len(tried), 1):g}", flush=True)
+    if launches["box_hits"] != 2 * len(tried):
+        fail(f"box_hits launched {launches['box_hits']} times for {len(tried)} filter calls")
     if launches["march_csg"] != 1:
         fail(f"march_csg launched {launches['march_csg']} times for one render, expected 1")
-    s = res.tried[-1]["stats"]
+    s = tried[-1]["stats"]
     print(f"filter counters of the last segment: {s['n_approach_dir_rej']:,} / {s['n_ik_rej']:,} / "
           f"{s['n_collision_rej']:,} rejected (approach, IK, collision), "
-          f"{res.tried[-1]['n_valid']:,} valid of {res.tried[-1]['n_candidates']:,} (with the "
+          f"{tried[-1]['n_valid']:,} valid of {tried[-1]['n_candidates']:,} (with the "
           f"256-ray strip cull on this settled pile: 17,710 / 51,213 / 163,699 rejected, 22,226 "
           f"valid)", flush=True)
     if launches["rollout_fused"] != 0:
@@ -1029,11 +1044,163 @@ def main_path(dev):
     out = res.out
     if out["depth"].shape != (384, 512) or not all(torch.isfinite(v).all() for v in out.values()):
         fail("render output has the wrong shape or non-finite values")
-    if not np.isfinite(res.found[4]).all():
+    if not np.isfinite(res.found.grasps_cam).all():
         fail("non-finite candidate poses")
-    print(f"candidates: {len(res.found[4])} grasps on body {res.found[1]} "
-          f"(fstats {json.dumps(res.fstats)})", flush=True)
+    print(f"candidates: {len(res.found.grasps_cam)} grasps on body {res.found.target} "
+          f"(fstats {json.dumps(tried[-1]['stats'])})", flush=True)
     return scene, state, params, launches, times
+
+
+# --------------------------------------------------------------------------
+# the pick-and-place path: one round of the closed-loop eval
+# --------------------------------------------------------------------------
+
+PICKPLACE_STAGES = ("settle_s", "render_s", "occupancy_s", "sample_filter_s", "nocs_filter_s",
+                    "scoring_s", "pick_planning_s", "pick_execution_s", "place_planning_s",
+                    "place_execution_s", "resettle_s")
+
+
+def pickplace_path(dev):
+    """One round of ``simulate_grasp_rounds`` at full width (nut, 8 objects,
+    the canonical's NOCS-transfer sampler, at most 2 attempts), with every
+    launch count set to 0 just before and read just after; the tallies, each
+    attempt's outcome and the stage times from its event log and timings.
+    K1's two launches of the last NOCS-transfer filter call and the last
+    render (one K2 launch) are recorded, then held against the plain
+    versions, timed and bounded on those inputs."""
+    import tempfile
+
+    from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
+    from catgrasp_tpu_torch.pipelines import run_grasp_simulation as rgs
+    from catgrasp_tpu_torch.render import raymarch
+
+    canonical = dict(np.load(os.path.join(REPO, "dataset", "nut_canonical.npz")))
+    n_codebook = int((canonical["canonical_grasp_scores"] >= 0.95).sum())
+    n_nocs = n_codebook * 12  # the codebook x the nut's 12 symmetries
+    nocs_calls, entry = [], collision.box_hits_depths
+
+    def recorder(*args):
+        hit = entry(*args)
+        if args[0].shape[0] == n_nocs:
+            nocs_calls[:] = (nocs_calls + [(args, hit)])[-2:]
+        return hit
+
+    renders, render = [], raymarch.render
+
+    def render_recorder(*args, **kw):
+        out = render(*args, **kw)
+        renders[:] = [(args, kw, out)]
+        return out
+
+    metrics = os.path.join(tempfile.mkdtemp(), "eval.jsonl")
+    timings = {}
+    collision.box_hits_depths = recorder
+    raymarch.render = render_recorder
+    collision.box_hits.launches = 0
+    render_march.march_csg.launches = 0
+    fused_rollout.rollout_fused.launches = 0
+    t0 = time.perf_counter()
+    try:
+        c = rgs.simulate_grasp_rounds("nut", n_rounds=1, n_objects=8, seed=0,
+                                      max_attempts_per_round=2, canonical=canonical,
+                                      metrics_path=metrics, device=dev, timings=timings)
+        torch.cuda.synchronize()
+    finally:
+        collision.box_hits_depths = entry
+        raymarch.render = render
+    wall = time.perf_counter() - t0
+    launches = {"box_hits": collision.box_hits.launches,
+                "march_csg": render_march.march_csg.launches,
+                "rollout_fused": fused_rollout.rollout_fused.launches}
+    with open(metrics) as fh:
+        events = [json.loads(line) for line in fh]
+    tally = {k: getattr(c, k) for k in ("num_objects", "num_attempts", "num_stable_grasp",
+                                        "num_task_grasp_succ")}
+    attempts = [{k: e[k] for k in ("attempt", "target", "n_candidates", "picked", "placed",
+                                   "p_T_G")} for e in events if e["kind"] == "attempt"]
+    filters = [e for e in events if e["kind"] == "filter"]
+    stage = {k: round(timings.get(k, 0.0), 4) for k in PICKPLACE_STAGES}
+    print(f"pick-and-place path tallies: {json.dumps(tally)}", flush=True)
+    for a in attempts:
+        print(f"  attempt {json.dumps(a)}", flush=True)
+    print(f"pick-and-place path stage times (s, synchronised, summed over the round): "
+          f"{json.dumps(stage)}; wall {wall:.2f} s", flush=True)
+    print(f"pick-and-place path launches: {json.dumps(launches)}; segments filtered "
+          f"{len(filters)} (K1 4 launches each: cone and NOCS-transfer gates)", flush=True)
+    if not (c.num_task_grasp_succ <= c.num_stable_grasp <= c.num_attempts <= 2
+            and 0 < c.num_objects <= 8):
+        fail(f"inconsistent tallies {tally}")
+    if c.num_attempts < 1 or len(attempts) != c.num_attempts:
+        fail(f"the round made {c.num_attempts} arm-executed attempts ({len(attempts)} "
+             f"attempt events): the pick was not driven")
+    if events[-2]["kind"] != "tally" or any(events[-2][k] != v for k, v in tally.items()):
+        fail("the event log's tally disagrees with the returned tallies")
+    if launches["box_hits"] != 4 * len(filters) or not filters:
+        fail(f"box_hits launched {launches['box_hits']} times for {len(filters)} segments "
+             f"filtered by both samplers (4 each)")
+    if not 1 <= launches["march_csg"] <= 2:
+        fail(f"march_csg launched {launches['march_csg']} times in a round of at most 2 "
+             f"attempts (one render each)")
+    if launches["rollout_fused"] != 0:
+        fail("the eval settles with the engine, not rollout_fused")
+    if len(nocs_calls) != 2:
+        fail(f"recorded {len(nocs_calls)} K1 launches at the NOCS gate's P={n_nocs}")
+    parts = [measure_box_hits(f"NOCS gate, {name}", collision, *args, hit_k=hit)
+             for name, (args, hit) in zip(("open gripper", "closing volume"), nocs_calls)]
+    gate = add_up(parts)
+    bound, bound_by = bound_of(gate["ops"], gate["bytes"])
+    print(f"K1 box_hits, the whole NOCS-transfer gate of one filter call on the round's own "
+          f"inputs (P={n_nocs}, 2 launches, 4 depths each): {gate['n_diff']} of "
+          f"{gate['n_entries']} entries differ; kernel {gate['ms']:.4f} ms, wrappers "
+          f"{gate['wrapper_ms']:.4f} ms, plain {gate['plain_ms']:.3f} ms, bound {bound:.4f} ms "
+          f"({bound_by})", flush=True)
+    gate.update(bound_ms=bound, bound_by=bound_by, P=n_nocs)
+    # K2 on the round's last render: the frame it made through the kernel
+    # against the plain march's on the same scene and rays
+    (lib, state, params, K, cam, H, W), kw, frame = renders[-1]
+    k2 = check_march("pick-and-place path", lib, state, params, K, cam, H, W, kw["env"],
+                     frame=frame)
+    return launches, gate, k2
+
+
+def no_host_waits(label: str, fn) -> None:
+    """Call ``fn`` once to warm it up, then again under
+    ``torch.cuda.set_sync_debug_mode("warn")``: fail if any operation in it
+    made the host wait for the device (a read of a device value, a copy
+    from pageable host memory)."""
+    import traceback
+    import warnings
+    fn()
+    torch.cuda.synchronize()
+    waits, other, inside = [], [], []
+
+    def record(message, category, filename, lineno, *_):
+        if not inside:
+            return  # switching the mode on or off, not fn's work
+        # the innermost frames of the package that led to the warning
+        frames = [f"{os.path.relpath(f.filename, REPO)}:{f.lineno}"
+                  for f in reversed(traceback.extract_stack())
+                  if f.filename.startswith(REPO) and not f.filename.endswith("chip_smoke.py")]
+        where = " < ".join(frames[:3]) or f"outside the package ({filename}:{lineno})"
+        if "called a synchronizing CUDA operation" in str(message):
+            waits.append(where)
+        else:
+            other.append(f"{str(message).splitlines()[0][:120]} at {where}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            inside.append(True)
+            fn()
+            inside.clear()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    print(f"host waits for the device in {label}: {len(waits)} (torch.cuda.set_sync_debug_mode)"
+          + (f" at {sorted(set(waits))}" if waits else "")
+          + (f"; other warnings {sorted(set(other))}" if other else ""), flush=True)
+    if waits:
+        fail(f"{label} made the host wait for the device {len(waits)} times")
 
 
 def device_profile(label: str, fn, wall_s: float) -> None:
@@ -1099,12 +1266,42 @@ def main() -> None:
                    lambda: engine.rollout(state, params, scene.lib, scene.env_bin, 20),
                    times["settle_s"] * 20 / 500)
     device_profile("one attempt: render, occupancy, sample + filter",
-                   lambda: rgs.oracle_cone_attempt(scene, state, params,
-                                                   np.random.default_rng(0),
-                                                   torch.Generator(device=dev).manual_seed(0)),
+                   lambda: rgs.oracle_attempt(scene, state, params,
+                                              np.random.default_rng(0),
+                                              torch.Generator(device=dev).manual_seed(0)),
                    times["render_s"] + times["occupancy_s"] + times["sample_filter_s"])
+    # 20 steps of the arm-executed pick on the same pile (the arm at home,
+    # clear of it): approach, close and hold, the pick's per-step work
+    from catgrasp_tpu_torch.sim import arm as simarm
+    home = torch.zeros((20, 7), device=dev)
+    base = torch.as_tensor(scene.base_in_world, device=dev)
+    ee = torch.as_tensor(scene.gripper.ee_in_grasp, device=dev)
+
+    def pick_steps():
+        return simarm.execute_pick_arm(scene.lib, state, params, scene.env_bin, 0, home, base, ee,
+                                       scene.gripper.spec, n_app=10, n_close=5, n_hold=5)
+
+    pick_steps()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pick_steps()
+    torch.cuda.synchronize()
+    device_profile("20 arm-executed pick steps", pick_steps, time.perf_counter() - t0)
+    # every phase of both executors, a few steps each
+    hold = torch.zeros((), device=dev) + 0.02
+    ob_in_grasp = torch.eye(4, device=dev)
+    no_host_waits("the pick executor: 6 approach, 5 close, 5 hold, 6 lift steps",
+                  lambda: simarm.execute_pick_arm(scene.lib, state, params, scene.env_bin, 0,
+                                                  home.new_zeros((22, 7)), base, ee,
+                                                  scene.gripper.spec,
+                                                  n_app=6, n_close=5, n_hold=5))
+    no_host_waits("the place executor: 10 transport, 10 release steps",
+                  lambda: simarm.execute_place_arm(scene.lib, state, params, scene.env_bin, 0,
+                                                   home, base, ee, ob_in_grasp, hold,
+                                                   scene.gripper.spec, n_move=10, n_drop=10))
 
     k1 = eval_gate(dev, scene, state, params)
+    pp_launches, k1_nocs, k2_pp = pickplace_path(dev)
     k3 = check_rollout(dev, logs["fused_rollout"])
     bench_launches, at_bench = bench_path(dev)
 
@@ -1133,7 +1330,16 @@ def main() -> None:
              "bound_ms_per_depth_sum": random_by_depth,
              "lane_use_warp": k1_random["lane_use_warp"],
              "lane_use_block": k1_random["lane_use_block"]},
-         "at_bench_path": at_bench["box_hits"]},
+         "at_bench_path": at_bench["box_hits"],
+         "launches_pickplace_path": pp_launches["box_hits"],
+         "at_nocs_gate": {
+             "shapes": f"the NOCS-transfer gate of one filter call on the pick-and-place "
+                       f"round's own inputs: P={k1_nocs['P']}; the segment's collision "
+                       f"subsample, at most 512 points (3 open boxes), and the background "
+                       f"cloud, at most 4,096 (closing box); A=7, D=4",
+             "mismatch_frac": k1_nocs["n_diff"] / k1_nocs["n_entries"], "ms": k1_nocs["ms"],
+             "wrapper_ms": k1_nocs["wrapper_ms"], "plain_ms": k1_nocs["plain_ms"],
+             "bound_ms": k1_nocs["bound_ms"], "bound_by": k1_nocs["bound_by"]}},
         {"name": "march_csg", "route": "cuda", "source": "catgrasp_tpu_torch/csrc/march_csg.cu",
          "replaces": "catgrasp_tpu/ops/render_march.py:224", "launches": launches["march_csg"],
          "launches_bench_path": bench_launches["march_csg"],
@@ -1145,12 +1351,17 @@ def main() -> None:
          "tile": "x".join(map(str, render_march.IMAGE_TILE)),
          "design": "one ray a thread", "variants_ms": k2["variants_ms"],
          "breakdown_ms": k2["breakdown_ms"], "render_split_ms": k2["render_split_ms"],
-         "shapes": k2["shapes"], "at_bench_path": at_bench["march_csg"]},
+         "shapes": k2["shapes"], "at_bench_path": at_bench["march_csg"],
+         "launches_pickplace_path": pp_launches["march_csg"],
+         "at_pickplace_path": {k: k2_pp[k] for k in (
+             "shapes", "seg_agree", "max_abs_err", "ms", "wrapper_ms", "timing", "plain_ms",
+             "bound_ms", "bound_by")}},
         {"name": "rollout_fused", "route": "cuda",
          "source": "catgrasp_tpu_torch/csrc/fused_rollout.cu",
          "replaces": "catgrasp_tpu/ops/fused_rollout.py:531",
          "launches": launches["rollout_fused"],
          "launches_bench_path": bench_launches["rollout_fused"],
+         "launches_pickplace_path": pp_launches["rollout_fused"],
          "max_abs_err": k3["max_abs_err"], "within_tol_frac": k3["within_tol_frac"],
          "ms": k3["ms"], "wrapper_ms": k3["wrapper_ms"], "prepare_ms": k3["prepare_ms"],
          "timing": k3["timing"], "plain_ms": k3["plain_ms"], "engine_ms": k3["engine_ms"],

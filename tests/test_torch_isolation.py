@@ -63,6 +63,9 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         lambda: bench.bench_collision_gate(n_poses=4, n_points=4, n_calls=1),
         lambda: bench.bench_ik_gate(n_poses=4, n_calls=1),
         lambda: bench.bench_render(batch=1, hw=(4, 4), n_calls=1),
+        lambda: rgs.simulate_grasp_rounds("nut", n_rounds=1, n_objects=2, render_hw=(8, 8),
+                                          verbose=False),
+        lambda: rgs.main(["--class_name", "nut", "--n_rounds", "1", "--oracle", "1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -112,6 +112,44 @@ def test_box_hits_every_variant_matches_plain_exactly(dev, which, n_offsets, n_d
     assert not collision.box_hits_depths(t_inv, cloud, none, boxes, offsets, depths, 5e-4).any()
 
 
+def test_box_hits_on_the_nocs_gate(dev):
+    """K1 at the NOCS-transfer gate's own shapes: the nut canonical's 5,679
+    codebook grasps (score >= 0.95) x 12 symmetries = 68,148 poses under a
+    NUNOCS pose in view, the open gripper against 512 target points and the
+    closing volume against 4,096 floor points, 7 offsets x 4 depths: at most
+    1e-5 of the entries differ from the plain version."""
+    import os
+    from catgrasp_tpu_torch.core.symmetry import get_symmetry_tfs
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    can = np.load(os.path.join(repo, "dataset", "nut_canonical.npz"))
+    grasps = can["canonical_grasps"][can["canonical_grasp_scores"] >= 0.95]
+    nocs_pose = np.eye(4, dtype=np.float32)
+    nocs_pose[:3, :3] = np.diag([0.024, -0.024, -0.008]).astype(np.float32)
+    nocs_pose[:3, 3] = [0.0, 0.0, 0.69]
+    rng = np.random.default_rng(9)
+    target = can["canonical_cloud"][rng.choice(1024, 512, replace=False)] @ nocs_pose[:3, :3].T \
+        + nocs_pose[:3, 3]
+    floor = rng.uniform([-0.1, -0.1, 0.7], [0.1, 0.1, 0.72], (4096, 3))
+    sym = torch.from_numpy(get_symmetry_tfs("nut")).to(dev)
+    T = torch.einsum("sij,gjk->gsik", sym, torch.from_numpy(grasps).to(dev))
+    T = torch.einsum("ij,gsjk->gsik", torch.from_numpy(nocs_pose).to(dev), T).reshape(-1, 4, 4)
+    R = T[:, :3, :3] / torch.linalg.vector_norm(T[:, :3, :3], dim=1, keepdim=True)
+    T = torch.cat([torch.cat([R, T[:, :3, 3:]], dim=2), T[:, 3:]], dim=1)
+    assert T.shape[0] == 68_148
+    t_inv = collision.pose_inverse_batch(T).contiguous()
+    depths = tuple(float(d) for d in gfilter.DEPTH_OFFSETS)
+    spec = GripperSpec()
+    for boxes, pts in ((gfilter._static_open_boxes(spec), target),
+                       (gfilter._static_enclosed_box(spec), floor)):
+        cloud = torch.from_numpy(pts.astype(np.float32)).to(dev)
+        mask = torch.ones(len(pts), dtype=torch.bool, device=dev)
+        k = collision.box_hits_depths(t_inv, cloud, mask, boxes, OFFSETS, depths, 5e-4)
+        p = collision.box_hits_depths_plain(t_inv, cloud, mask, boxes, OFFSETS, depths, 5e-4)
+        torch.cuda.synchronize()
+        assert k.shape == (68_148, 4, 7) and 0 < int(p.sum()) < p.numel()
+        assert (k != p).float().mean().item() <= 1e-5
+
+
 def _march_scene(dev):
     classes = ("nut", "screw", "hnm")
     lib = build_shape_lib([primitives.make_instance(c, "train", 0) for c in classes],

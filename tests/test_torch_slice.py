@@ -1,9 +1,12 @@
 """Port parity for the slice as a whole: the front half of one eval attempt
 (render -> occupancy -> cone sample -> filter) on the same settled pile.
 
-The JAX side mirrors ``simulate_grasp_rounds`` lines 484-580 with the JAX
+The JAX side mirrors ``simulate_grasp_rounds`` lines 484-604 with the JAX
 package's functions; the port side calls
-``pipelines.run_grasp_simulation.oracle_cone_attempt`` unchanged.  Both draw
+``pipelines.run_grasp_simulation.oracle_attempt``: with no canonical (the
+cone sampler alone), and with a small canonical codebook (per segment the
+oracle NUNOCS pose and the NOCS-transfer sampler beside the cone sampler,
+found on the union of their candidates).  Both draw
 the 512-point and 4,096-point subsamples from one numpy seed in the same
 order.  The sample ids come from the JAX side (a ``jax.random`` stream
 cannot be reproduced in torch) and are restricted to points whose Darboux
@@ -16,23 +19,30 @@ sits on a threshold (a silhouette pixel, a voxel exactly at the observed
 depth, a point exactly on a gripper box face).  Such ties are rare, hence
 candidate-mask agreement >= 99.9% and each counter within 0.1% of JAX's.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from catgrasp_tpu.core import transforms as jtf
 from catgrasp_tpu.core.sampling import cone_directions
+from catgrasp_tpu.core.symmetry import get_symmetry_tfs
 from catgrasp_tpu.geom import occupancy as jocc
+from catgrasp_tpu.geom import primitives as jprim
 from catgrasp_tpu.grasp import filter as jfilter
 from catgrasp_tpu.grasp import sampler as jsampler
 from catgrasp_tpu.grasp.gripper import Gripper as JGripper
+from catgrasp_tpu.grasp.sampler import NocsTransferGraspSampler as JNocs
+from catgrasp_tpu.pipelines.make_canonical import to_nunocs_transform
 from catgrasp_tpu.render import raymarch as jraymarch
 from catgrasp_tpu.sim import engine as jengine
 from catgrasp_tpu.sim import env_pile as jpile
 from catgrasp_tpu.sim.types import SceneParams as JSceneParams
 from catgrasp_tpu.sim.types import SceneState as JSceneState
-from catgrasp_tpu_torch.grasp.sampler import PointConeGraspSampler
+from catgrasp_tpu_torch.grasp.sampler import NocsTransferGraspSampler, PointConeGraspSampler
 from catgrasp_tpu_torch.pipelines import run_grasp_simulation as rgs
 from test_torch_common import np_fields, port_params, port_state, t2n
 
@@ -40,6 +50,8 @@ torch.set_num_threads(2)
 H, W, FX = 48, 64, 300.0  # zoomed in so each nut covers ~100 pixels
 GRID = (24, 24, 24)  # 8.3 mm voxels over the 0.2 m reach
 SAMPLER = dict(max_num_samples=4, n_sphere_dir=4, approach_step=0.005)  # 900 poses
+CANONICAL = "dataset/nut_canonical.npz"
+N_CODEBOOK = 64  # the canonical's best grasps: 64 x 12 symmetries = 768 poses
 
 
 def _small_scene():
@@ -83,10 +95,14 @@ def _well_posed_ids(pts, nrm, r_ball, m, stable):
     return np.random.default_rng(2).choice(ok, m, replace=False)
 
 
-def _jax_front_half(sc, lib, state, params, env, rng, ids_out, stable_px):
-    """The JAX package's attempt body (oracle, cone sampler), with the
-    sampler's ids chosen as documented above and recorded in ``ids_out``;
-    ``stable_px`` (H, W) marks the pixels whose normals the renders share."""
+def _jax_front_half(sc, lib, state, params, env, rng, ids_out, stable_px, nocs=None,
+                    cone_off=False):
+    """The JAX package's attempt body (oracle, cone sampler and, given
+    ``nocs``, the NOCS-transfer sampler on its plain "xla" collision path),
+    with the cone sampler's ids chosen as documented above and recorded in
+    ``ids_out``; ``stable_px`` (H, W) marks the pixels whose normals the
+    renders share.  ``cone_off`` drops every cone candidate after the
+    filter."""
     Kc = jnp.asarray(t2n(sc.K))
     out = jraymarch.render(lib, state, params, Kc, jnp.asarray(sc.cam), H, W, env=env)
     seg_body = np.asarray(out["seg"])
@@ -138,10 +154,28 @@ def _jax_front_half(sc, lib, state, params, env, rng, ids_out, stable_px):
             jnp.asarray(gripper.ee_in_grasp), jnp.asarray(P), jnp.asarray(bg),
             jnp.ones(n_sub, bool), jnp.ones(len(bg), bool), spec=gripper.spec,
             filter_ik=True, chunk=128, adjust_depth=True)
-        valid = np.asarray(valid)
-        tried.append({"seg": int(sid), "valid": valid, "T": np.asarray(T),
-                      "stats": {k: int(v) for k, v in stats.items()}})
-        if valid.any():
+        valid = np.asarray(valid) & (not cone_off)
+        entry = {"seg": int(sid), "valid": valid, "T": np.asarray(T),
+                 "stats": {k: int(v) for k, v in stats.items()}}
+        cand, prov = [np.asarray(T)[valid]], [np.zeros(int(valid.sum()), np.int32)]
+        if nocs is not None:
+            ob_in_cam = np.linalg.inv(sc.cam) @ np.asarray(
+                jtf.pose_from_qt(state.quat[sid], state.pos[sid]))
+            mesh = jprim.make_instance("nut", "test", int(params.shape_id[sid]))
+            T_nocs = to_nunocs_transform(mesh.vertices * float(params.scale[sid]))
+            nocs_pose = (ob_in_cam @ np.linalg.inv(T_nocs)).astype(np.float32)
+            poses_n, valid_n, _ = nocs.sample_grasps(
+                jnp.asarray(nocs_pose), jnp.asarray(get_symmetry_tfs("nut")), bg,
+                np.ones(len(bg), bool), P, np.ones(n_sub, bool),
+                cam_in_world=jnp.asarray(t2n(sc.cam_in_base)), filter_ik=True, chunk=128,
+                adjust_depth=True, backend="xla")
+            valid_n = np.asarray(valid_n)
+            entry.update(nocs_pose=nocs_pose, nocs_valid=valid_n, nocs_T=np.asarray(poses_n))
+            cand.append(np.asarray(poses_n)[valid_n])
+            prov.append(np.ones(int(valid_n.sum()), np.int32))
+        entry.update(grasps_cam=np.concatenate(cand), prov=np.concatenate(prov))
+        tried.append(entry)
+        if len(entry["grasps_cam"]):
             break
     return out, tried
 
@@ -159,12 +193,19 @@ class _GivenIds(PointConeGraspSampler):
         return torch.tensor(sample_ids), torch.tensor(sub_ids)
 
 
+class _NoCone(_GivenIds):
+    """``_GivenIds`` with every candidate dropped after the filter."""
+
+    def sample_grasps(self, *args, **kw):
+        poses, valid, stats = super().sample_grasps(*args, **kw)
+        return poses, torch.zeros_like(valid), stats
+
+
 @pytest.fixture(scope="module")
 def settled():
     """A 3-nut pile plus fixture, reset and stepped 60 times in JAX."""
     sc = _small_scene()
     from catgrasp_tpu.geom import csg as jcsg
-    from catgrasp_tpu.geom import primitives as jprim
     from catgrasp_tpu.sim import arm as jarm
     from catgrasp_tpu.sim.types import build_shape_lib as jbuild
     fit = jprim.instance_params("nut", "test", 0)
@@ -219,13 +260,13 @@ def test_slice_matches_jax(settled):
                                      queue, _stable_normals(*settled))
     assert j_tried and j_tried[-1]["valid"].any(), "the JAX side found no candidates"
     sc.cone = _GivenIds(queue, gripper=sc.gripper, **SAMPLER)
-    res = rgs.oracle_cone_attempt(sc, port_state(state), port_params(params),
-                                  np.random.default_rng(0), generator=None)
+    res = rgs.oracle_attempt(sc, port_state(state), port_params(params),
+                             np.random.default_rng(0), generator=None)
     seg_j, seg_p = np.asarray(j_out["seg"]), t2n(res.out["seg"])
     assert (seg_j == seg_p).mean() > 0.995
     assert [t["seg"] for t in res.tried] == [t["seg"] for t in j_tried]
-    assert res.found is not None and res.found[1] == j_tried[-1]["seg"]
-    for tp, tj in zip(res.tried, j_tried):
+    assert res.found is not None and res.found.target == j_tried[-1]["seg"]
+    for tp, tj in zip((t["cone"] for t in res.tried), j_tried):
         assert tp["n_candidates"] == len(tj["valid"]) == 4 * 25 * 9
         agree = (tp["valid"] == tj["valid"]).mean()
         assert agree >= 0.999, f"candidate masks agree on {agree:.4%}"
@@ -234,9 +275,53 @@ def test_slice_matches_jax(settled):
     # the candidate poses, where both sides kept the candidate: rendered
     # normals agree to 1e-5, which the covariance eigenvector amplifies by
     # 1/gap (gap >= 5%), hence 1e-4 rather than the sampler's 1e-5
-    vp, vj = res.tried[-1]["valid"], j_tried[-1]["valid"]
+    vp, vj = res.tried[-1]["cone"]["valid"], j_tried[-1]["valid"]
     both = vp & vj
-    np.testing.assert_allclose(res.found[4][both[vp]], j_tried[-1]["T"][both], atol=1e-4)
+    np.testing.assert_allclose(res.found.grasps_cam[both[vp]], j_tried[-1]["T"][both],
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("cone", ["on", "off"])
+def test_slice_with_canonical_matches_jax(settled, cone):
+    """With a canonical codebook, on the same pile and numpy draws: the
+    segments tried, the oracle NUNOCS pose within 1e-6, both samplers'
+    candidate masks (agreement >= 99.9%, as above), and the found segment's
+    union of candidates, cone's first: provenance (0 cone, 1 NOCS transfer)
+    equal, poses within 1e-4 where both sides kept them.  With the cone's
+    candidates dropped on both sides (``off``), a segment is found on the
+    NOCS-transfer candidates alone."""
+    sc, lib, state, params, env = settled
+    can = dict(np.load(CANONICAL))
+    j_nocs = JNocs(JGripper.default(), can["canonical_grasps"], can["canonical_grasp_scores"],
+                   score_larger_than=0.95, max_n_grasp=N_CODEBOOK)
+    queue = []
+    _, j_tried = _jax_front_half(sc, lib, state, params, env, np.random.default_rng(0), queue,
+                                 _stable_normals(*settled), nocs=j_nocs,
+                                 cone_off=cone == "off")
+    assert j_tried and j_tried[-1]["nocs_valid"].any(), "the JAX NOCS sampler kept nothing"
+    p_nocs = NocsTransferGraspSampler(sc.gripper, can["canonical_grasps"],
+                                      can["canonical_grasp_scores"], score_larger_than=0.95,
+                                      max_n_grasp=N_CODEBOOK)
+    cone_sampler = (_GivenIds if cone == "on" else _NoCone)(queue, gripper=sc.gripper, **SAMPLER)
+    scp = dataclasses.replace(sc, cone=cone_sampler, nocs=p_nocs)
+    res = rgs.oracle_attempt(scp, port_state(state), port_params(params),
+                             np.random.default_rng(0), generator=None)
+    assert [t["seg"] for t in res.tried] == [t["seg"] for t in j_tried]
+    for tp, tj in zip(res.tried, j_tried):
+        for mp, mj in ((tp["cone"]["valid"], tj["valid"]),
+                       (tp["nocs"]["valid"], tj["nocs_valid"])):
+            assert len(mp) == len(mj)
+            agree = (mp == mj).mean()
+            assert agree >= 0.999, f"candidate masks agree on {agree:.4%}"
+    tj, tp = j_tried[-1], res.tried[-1]
+    assert res.found is not None and res.found.target == tj["seg"]
+    np.testing.assert_allclose(res.found.nocs_pose, tj["nocs_pose"], atol=1e-6)
+    np.testing.assert_array_equal(res.found.prov, tj["prov"])
+    both = np.concatenate([(tp["cone"]["valid"] & tj["valid"])[tp["cone"]["valid"]],
+                           (tp["nocs"]["valid"] & tj["nocs_valid"])[tp["nocs"]["valid"]]])
+    both_j = np.concatenate([(tp["cone"]["valid"] & tj["valid"])[tj["valid"]],
+                             (tp["nocs"]["valid"] & tj["nocs_valid"])[tj["nocs_valid"]]])
+    np.testing.assert_allclose(res.found.grasps_cam[both], tj["grasps_cam"][both_j], atol=1e-4)
 
 
 def test_port_slice_runs_end_to_end():
@@ -248,13 +333,13 @@ def test_port_slice_runs_end_to_end():
     rng = np.random.default_rng(0)
     state, params = rgs.make_round_pile(sc, rng, g, settle_steps=40)
     assert bool(state.active[-1])  # the fixture stays active
-    res = rgs.oracle_cone_attempt(sc, state, params, rng, g)
+    res = rgs.oracle_attempt(sc, state, params, rng, g)
     assert res.out["depth"].shape == (H, W) and torch.isfinite(res.out["xyz"]).all()
     assert res.tried, "no segment was large enough to sample"
-    for t in res.tried:
+    for t in (t["cone"] for t in res.tried):
         s = t["stats"]
         assert (s["n_approach_dir_rej"] + s["n_ik_rej"] + s["n_collision_rej"]
                 + t["n_valid"]) == t["n_candidates"] == 900
     if res.found is not None:
-        assert res.fstats == res.tried[-1]["stats"]
-        assert res.found[4].shape == (res.tried[-1]["n_valid"], 4, 4)
+        assert res.found.grasps_cam.shape == (res.tried[-1]["cone"]["n_valid"], 4, 4)
+        assert (res.found.prov == 0).all()
