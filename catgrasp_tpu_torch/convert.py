@@ -5,7 +5,8 @@ The JAX package's state lives in pytrees (``ShapeLib``, ``SceneState``,
 field and handing the dict over gives the port the same scene, so both
 sides can compute on identical inputs.  ``ShapeLib``'s nested CSG tree
 takes the keys ``csg.types``, ``csg.ops``, ``csg.params`` and
-``csg.offsets``.
+``csg.offsets``; its baked grids, where the dict has them, the keys
+``sdf_values``, ``sdf_lower`` and ``sdf_spacing``.
 """
 from __future__ import annotations
 
@@ -40,6 +41,7 @@ def shape_lib_from_numpy(d: dict, device=None) -> ShapeLib:
         inertia_unit=_t(d, "inertia_unit", dev),
         radius=_t(d, "radius", dev),
         bounds=_t(d, "bounds", dev),
+        **{k: _t(d, k, dev) for k in ("sdf_values", "sdf_lower", "sdf_spacing") if k in d},
     )
 
 

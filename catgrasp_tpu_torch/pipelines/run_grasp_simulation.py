@@ -11,11 +11,19 @@ place over the category's fixture (symmetry loop, RRT transport,
 insertion, release) -> re-settle -> tallies ``num_objects / num_attempts
 / num_stable_grasp / num_task_grasp_succ``.
 
-Ported: oracle perception, CSG geometry, the arm-executed pick and place
-(``use_arm`` and ``arm_exec`` on).  Learned perception, the grid-SDF
-geometry (``obj_path``), articulated arm dynamics and the floating-gripper
-baseline raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that
-ports them.
+The floating-gripper baseline replaces the arm's execution: with
+``use_arm=0`` the pick is the first candidate in score order, with
+``arm_exec=0`` the IK + RRT gate still chooses it; either way a floating
+gripper closes on it in the pile (``execute_pick``) and the place is
+``sim.env_semantic.place_and_drop``, steered by the commanded grasp.  With
+``obj_path`` the pile is one external mesh, its SDF grid baked on the
+device, and physics and rendering run through the baked grids (the grid
+narrowphase and the grid march) instead of CSG.
+
+Ported: oracle perception for the three categories, CSG and grid geometry,
+the arm-executed and the floating pick and place.  Learned perception and
+articulated arm dynamics raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports them.
 
 The numpy randomness makes the JAX loop's calls in the same order: the
 4,096-point background and 512-point collision subsamples of each segment
@@ -36,10 +44,11 @@ import torch
 from ..config.loader import load_config
 from ..core import transforms as tf
 from ..core.symmetry import get_symmetry_tfs
-from ..device import resolve_device
+from ..device import constant, resolve_device
 from ..geom import csg as csglib
 from ..geom import occupancy
 from ..geom import primitives as prim
+from ..geom.mesh import TriMesh
 from ..grasp.filter import compact_valid, engagement_depth
 from ..grasp.gripper import Gripper
 from ..grasp.quality import parallel_jaw_quality
@@ -50,7 +59,8 @@ from ..render import raymarch
 from ..sim import arm as simarm
 from ..sim import engine, env_pile
 from ..sim import env_semantic as es
-from ..sim.env_grasp import GripperSpec, finger_contact_points
+from ..sim.env_grasp import (GripperSpec, closing_step, closing_touched_init,
+                             finger_contact_points, gripper_env)
 from ..sim.types import SceneParams, SceneState, ShapeLib, build_shape_lib
 from ..utils.metrics import MetricsLogger
 
@@ -103,31 +113,51 @@ class EvalScene:
     fix_pts_base: np.ndarray | None = None  # fixture surface points, base frame
     # 1.56 mm occupancy voxels (128^3 over the 0.2 m reach)
     grid_dims: tuple = (128, 128, 128)
+    # "csg" (the procedural instances' trees) or "grid" (baked SDF grids of
+    # an external mesh): the narrowphase of every step and the render's
+    geometry: str = "csg"
 
 
 def setup_scene(class_name: str = "nut", n_objects: int = 5, cfg_run: dict | None = None,
                 render_hw=(384, 512), instance: int | None = None,
-                canonical: dict | None = None, device=None) -> EvalScene:
+                canonical: dict | None = None, device=None,
+                obj_path: str | None = None) -> EvalScene:
     """Scene set-up of one eval run: the pile is ONE object model at scale 1
     (or mixed instances when ``instance`` < 0) plus that model's place
     fixture; with a ``canonical`` model, its grasp codebook feeds the
-    NOCS-transfer sampler."""
+    NOCS-transfer sampler.  With ``obj_path`` the model is that watertight
+    .obj instead, beside the category's default fixture; both get SDF grids
+    baked on the device (56 a side) and the scene runs on grid geometry."""
     dev = resolve_device(device)
     cfg_run = cfg_run or load_config("config_run.yml")
     gripper = Gripper.default()
 
     split = cfg_run.get("instance_split", "test")
-    n_inst = prim.num_instances(class_name, split)
-    if instance is None:
-        instance = int(cfg_run.get("instance_index", 0))
-    fix_params = prim.instance_params(class_name, split, instance) if instance >= 0 else None
-    meshes = [prim.make_instance(class_name, split, i) for i in range(n_inst)]
-    csgs = [csglib.make_csg_instance(class_name, split, i) for i in range(n_inst)]
-    meshes.append(prim.place_fixture(class_name, fix_params))
-    csgs.append(csglib.csg_place_fixture(class_name, fix_params))
-    # 256 surface points a body: the peg-through-nut-hole interaction needs
-    # < 3 mm point spacing on thin features
-    lib = build_shape_lib(meshes, csgs, n_surf=256, device=dev)
+    if obj_path:
+        # the mesh needs no CSG tree: a bounding-box placeholder keeps the
+        # stacked-shape layout (the fixture keeps its own)
+        m = TriMesh.load_obj(obj_path)
+        b = m.bounds
+        n_inst, instance = 1, 0
+        meshes = [m, prim.place_fixture(class_name, None)]
+        csgs = [csglib.csg_box(b[1] - b[0], center=(b[1] + b[0]) / 2),
+                csglib.csg_place_fixture(class_name, None)]
+        lib = build_shape_lib(meshes, csgs, n_surf=256, bake_grids=True, dims=56, device=dev)
+        geometry = "grid"
+    else:
+        n_inst = prim.num_instances(class_name, split)
+        if instance is None:
+            instance = int(cfg_run.get("instance_index", 0))
+        fix_params = (prim.instance_params(class_name, split, instance) if instance >= 0
+                      else None)
+        meshes = [prim.make_instance(class_name, split, i) for i in range(n_inst)]
+        csgs = [csglib.make_csg_instance(class_name, split, i) for i in range(n_inst)]
+        meshes.append(prim.place_fixture(class_name, fix_params))
+        csgs.append(csglib.csg_place_fixture(class_name, fix_params))
+        # 256 surface points a body: the peg-through-nut-hole interaction
+        # needs < 3 mm point spacing on thin features
+        lib = build_shape_lib(meshes, csgs, n_surf=256, device=dev)
+        geometry = "csg"
     fixture_idx = len(meshes) - 1
 
     pile_cfg = env_pile.PileConfig(max_bodies=n_objects, scale_range=(0.9, 1.1))
@@ -173,7 +203,7 @@ def setup_scene(class_name: str = "nut", n_objects: int = 5, cfg_run: dict | Non
                      base_in_world=base_in_world, cam_in_base=cam_in_base,
                      gripper=gripper, cone=cone, device=dev, canonical=canonical, nocs=nocs,
                      sym=get_symmetry_tfs(class_name), T_fix=T_fix,
-                     fix_pts_base=fix_pts_base)
+                     fix_pts_base=fix_pts_base, geometry=geometry)
 
 
 def _sync(dev: torch.device) -> None:
@@ -231,7 +261,7 @@ def settle_keep_fixture(scene: EvalScene, state: SceneState, params: SceneParams
                         n_steps: int) -> SceneState:
     """A fixed settle whose out-of-bin cull leaves the fixture active."""
     state = env_pile.settle_fixed(state, params, scene.lib, scene.env_bin, scene.pile_cfg,
-                                  n_steps)
+                                  n_steps, narrowphase=scene.geometry)
     active = state.active.clone()
     active[scene.n_objects] = True
     return state.replace(active=active)
@@ -298,7 +328,7 @@ def oracle_attempt(scene: EvalScene, state: SceneState, params: SceneParams,
     t0 = time.perf_counter()
     out = raymarch.render(scene.lib, state, params, scene.K,
                           torch.as_tensor(scene.cam, device=dev), H, W,
-                          env=scene.env_bin, geometry="csg")
+                          env=scene.env_bin, geometry=scene.geometry)
     seg_body = out["seg"].cpu().numpy()  # ground-truth body ids
     xyz = out["xyz"].cpu().numpy()
     normal = out["normal"].cpu().numpy()
@@ -537,7 +567,8 @@ def plan_place(scene: EvalScene, ob_in_grasp: np.ndarray, q_cur: np.ndarray,
     reaches from ``q_cur``.  The fallback ladder tries up to 6 IK branches
     of the pre-place pose, and plans a branch the observed cloud blocks
     again with no obstacles and no floor.
-    Returns the place schedule (T, 7) or None."""
+    Returns (the place schedule (T, 7) or None, the gate's record: the
+    index of the symmetry taken or None, and its ``fails`` counters)."""
     dev = scene.device
     pre_t, place_t = es.TASK_POSES[scene.class_name]
     base_inv = np.linalg.inv(scene.base_in_world)
@@ -601,11 +632,12 @@ def plan_place(scene: EvalScene, ob_in_grasp: np.ndarray, q_cur: np.ndarray,
         if verbose:
             print("    place: no IK-feasible/plannable orientation among "
                   f"{len(sym)} symmetries (gate fails: {fails})")
-        return None
+        return None, {"sym": None, "fails": fails}
     path, qs_d = plan
     move = np.concatenate([simarm.resample_traj(path, N_MOVE_P - 40),
                            simarm.resample_traj(qs_d, 40)]).astype(np.float32)
-    return np.concatenate([move, np.repeat(move[-1][None], N_DROP_P, axis=0)])
+    sched = np.concatenate([move, np.repeat(move[-1][None], N_DROP_P, axis=0)])
+    return sched, {"sym": s, "fails": fails}
 
 
 def execute_place(scene: EvalScene, state: SceneState, params: SceneParams, target: int,
@@ -620,7 +652,7 @@ def execute_place(scene: EvalScene, state: SceneState, params: SceneParams, targ
     final, ob_pose_final, place_traj = simarm.execute_place_arm(
         scene.lib, state, params, scene.env_bin, target, torch.as_tensor(sched, device=dev),
         base, ee_in_grasp, ob_in_grasp, width, scene.gripper.spec, n_move=N_MOVE_P,
-        n_drop=N_DROP_P, center=grip_center)
+        n_drop=N_DROP_P, narrowphase=scene.geometry, center=grip_center)
     T_fix_inv = torch.as_tensor(np.linalg.inv(scene.T_fix), device=dev)
     ob_in_fix = T_fix_inv @ ob_pose_final
     placed = bool(es.place_success(scene.class_name, ob_in_fix,
@@ -643,6 +675,65 @@ def execute_place(scene: EvalScene, state: SceneState, params: SceneParams, targ
 
 
 # ---------------------------------------------------------------------------
+# The floating-gripper baseline: pick in the pile, place in the fixture world
+# ---------------------------------------------------------------------------
+
+
+def execute_pick(lib: ShapeLib, state: SceneState, params: SceneParams,
+                 env_bin: engine.StaticEnv, target: int, grasp_in_world: torch.Tensor,
+                 spec: GripperSpec = GripperSpec(), narrowphase: str = "csg"):
+    """A floating gripper at ``grasp_in_world`` closes on the target in the
+    pile for ``CLOSE_STEPS`` steps, then holds still under gravity for
+    ``LIFT_STEPS``; the hold test asks for a displacement below 2 cm from the
+    end of the close, a width above 1 mm (closed on something) and the
+    object still between the fingers, measured from the finger midline the
+    close settled at.  Transport is an attachment, so the caller removes the
+    object from the pile.  Returns (picked, final state, the target's pose
+    in the grasp frame, the final width) as tensors; no step waits for the
+    device."""
+    dt = engine.DT
+    dev = grasp_in_world.device
+    G_inv = tf.pose_inverse(grasp_in_world)
+    local = simarm._target_points_local(lib, params, target)
+    st = state
+    w = torch.full((), spec.max_width, device=dev)
+    c = torch.zeros((), device=dev)
+    tch = closing_touched_init(dev)
+    pos_close = st.pos[target]
+    for i in range(CLOSE_STEPS + LIFT_STEPS):
+        closing = i < CLOSE_STEPS
+        R = tf.quat_to_matrix(st.quat[target])
+        pts_g = tf.transform_points(G_inv, st.pos[target] + local @ R.T)
+        w, c, tch, v_p, v_n = closing_step(pts_g, w, c, tch, closing, spec, dt)
+        genv = gripper_env(grasp_in_world, w, c, v_p, v_n, spec,
+                           grip=False if closing else tch[0] & tch[1])
+        st = engine.step(st, params, lib, simarm.merge_envs(env_bin, genv), dt=dt,
+                         gravity=-9.8, narrowphase=narrowphase)
+        if i == CLOSE_STEPS - 1:
+            pos_close = st.pos[target].clone()
+    disp = tf.norm(st.pos[target] - pos_close)
+    ob_in_grasp = G_inv @ tf.pose_from_qt(st.quat[target], st.pos[target])
+    ref = torch.stack([torch.full((), 0.02, device=dev), c, torch.zeros((), device=dev)])
+    bound = constant((0.06, 0.05, 0.05), torch.float32, dev)
+    centered = torch.all(torch.abs(ob_in_grasp[:3, 3] - ref) < bound)
+    picked = (disp < 0.02) & (w > 1e-3) & centered
+    return picked, st, ob_in_grasp, w
+
+
+def place_floating(scene: EvalScene, state: SceneState, params: SceneParams, target: int,
+                   ob_in_grasp: torch.Tensor, width: torch.Tensor,
+                   grasp_world: torch.Tensor) -> torch.Tensor:
+    """The floating baseline's place: ``place_and_drop`` with the actual
+    in-hand pose (pick slip included) and the commanded one, the commanded
+    grasp in the target's pre-pick frame."""
+    cmd = tf.pose_inverse(tf.pose_from_qt(state.quat[target], state.pos[target])) @ grasp_world
+    return es.place_and_drop(scene.lib, params.shape_id[target], scene.fixture_idx,
+                             params.scale[target], tf.pose_inverse(ob_in_grasp),
+                             scene.class_name, width, scene.gripper.spec,
+                             narrowphase=scene.geometry, grasp_in_ob_cmd=cmd)
+
+
+# ---------------------------------------------------------------------------
 # Main loop
 # ---------------------------------------------------------------------------
 
@@ -658,20 +749,12 @@ class EvalCounters:
 _LEARNED = "learned perception is not ported: ROADMAP.md §1, 'Learned perception'"
 
 
-def _check_mode(oracle, predicters, obj_path, arm_dynamics, use_arm, arm_exec):
+def _check_mode(oracle, predicters, arm_dynamics):
     if not oracle or predicters:
         raise NotImplementedError(_LEARNED)
-    if obj_path:
-        raise NotImplementedError(
-            "the grid-SDF geometry (obj_path) is not ported: ROADMAP.md §1, "
-            "'The grid geometry path'")
     if arm_dynamics:
         raise NotImplementedError(
             "articulated arm dynamics are not ported: ROADMAP.md §1, 'Rest' (kin/dynamics.py)")
-    if not (use_arm and arm_exec):
-        raise NotImplementedError(
-            "the floating-gripper baseline (use_arm=0 or arm_exec=0) is not ported: "
-            "ROADMAP.md §1, 'The floating-gripper baseline'")
 
 
 class _Stages:
@@ -711,14 +794,14 @@ def simulate_grasp_rounds(class_name: str = "nut", n_rounds: int = 2,
     ``max_attempts_per_round`` pick-and-place attempts each.  Returns the
     tallies.  With a ``timings`` dict, the wall seconds of each stage are
     summed into it (the device synchronised at each stage end)."""
-    _check_mode(oracle, predicters, obj_path, arm_dynamics, use_arm, arm_exec)
+    _check_mode(oracle, predicters, arm_dynamics)
     dev = resolve_device(device)
     mlog = MetricsLogger(metrics_path, run="eval", class_name=class_name,
                          seed=seed, oracle=oracle)
     cfg_run = cfg_run or load_config("config_run.yml")
     stages = _Stages(timings, dev)
     scene = setup_scene(class_name, n_objects, cfg_run, render_hw, instance,
-                        canonical=canonical, device=dev)
+                        canonical=canonical, device=dev, obj_path=obj_path)
     stages.lap("setup_s")
     if canonical is None or not canonical["canonical_affordance"].any():
         print("WARNING: canonical has no affordance codebook — P(T|G) fixed at 1.0; "
@@ -758,40 +841,61 @@ def simulate_grasp_rounds(class_name: str = "nut", n_rounds: int = 2,
             sc = score_candidates(scene, cfg_run, f)
             stages.lap("scoring_s")
 
-            xyz = front.out["xyz"].cpu().numpy()
-            obs_base = obstacles_in_base(scene, xyz, f.bg_m, rng)
-            pick, pick_plan, n_ik_fail, n_plan_fail = plan_pick(
-                scene, f.grasps_cam, sc.order, obs_base, seed)
-            stages.lap("pick_planning_s")
-            if pick is None:
-                mlog.event("plan_fail", round=rnd, attempt=attempt,
-                           n_candidates=len(sc.order), n_ik_fail=n_ik_fail,
-                           n_plan_fail=n_plan_fail)
-                if verbose:
-                    print(f"round {rnd} attempt {attempt}: no reachable/plannable grasp among "
-                          f"{min(len(sc.order), PICK_TRIES)} (ik/descent fails {n_ik_fail}, "
-                          f"rrt fails {n_plan_fail})")
-                break
+            pick_plan = None
+            if use_arm:
+                xyz = front.out["xyz"].cpu().numpy()
+                obs_base = obstacles_in_base(scene, xyz, f.bg_m, rng)
+                pick, pick_plan, n_ik_fail, n_plan_fail = plan_pick(
+                    scene, f.grasps_cam, sc.order, obs_base, seed)
+                stages.lap("pick_planning_s")
+                if pick is None:
+                    mlog.event("plan_fail", round=rnd, attempt=attempt,
+                               n_candidates=len(sc.order), n_ik_fail=n_ik_fail,
+                               n_plan_fail=n_plan_fail)
+                    if verbose:
+                        print(f"round {rnd} attempt {attempt}: no reachable/plannable grasp "
+                              f"among {min(len(sc.order), PICK_TRIES)} (ik/descent fails "
+                              f"{n_ik_fail}, rrt fails {n_plan_fail})")
+                    break
+            else:
+                pick = sc.order[0]
 
-            # --- execute the pick through the arm ---
             counters.num_attempts += 1
-            sched = pick_schedule(pick_plan)
-            picked, state_after, ob_in_grasp, w_f, c_f, disturb = simarm.execute_pick_arm(
-                scene.lib, state, params, scene.env_bin, target,
-                torch.as_tensor(sched, device=dev), base, ee_in_grasp, spec,
-                n_app=N_APP, n_close=CLOSE_STEPS, n_hold=LIFT_STEPS)
-            picked, disturb = bool(picked), float(disturb)
+            arm = use_arm and arm_exec
+            if arm:
+                # --- execute the pick through the arm ---
+                sched = pick_schedule(pick_plan)
+                picked, state_after, ob_in_grasp, w_f, c_f, disturb = simarm.execute_pick_arm(
+                    scene.lib, state, params, scene.env_bin, target,
+                    torch.as_tensor(sched, device=dev), base, ee_in_grasp, spec,
+                    n_app=N_APP, n_close=CLOSE_STEPS, n_hold=LIFT_STEPS,
+                    narrowphase=scene.geometry)
+                disturb = float(disturb)
+            else:
+                # --- the floating gripper closes on it in the pile ---
+                grasp_world = torch.as_tensor(
+                    (scene.cam @ f.grasps_cam[pick]).astype(np.float32), device=dev)
+                picked, state_after, ob_in_grasp, w_f = execute_pick(
+                    scene.lib, state, params, scene.env_bin, target, grasp_world, spec,
+                    scene.geometry)
+                disturb = 0.0
+            picked = bool(picked)
             stages.lap("pick_execution_s")
             placed = False
             if picked:
                 counters.num_stable_grasp += 1
-                place_sched = plan_place(scene, ob_in_grasp.cpu().numpy(), sched[-1],
-                                         obs_base, seed, verbose)
-                stages.lap("place_planning_s")
-                if place_sched is not None:
-                    placed, state_after = execute_place(
-                        scene, state_after, params, target, place_sched, ob_in_grasp, w_f,
-                        c_f, verbose)
+                if arm:
+                    place_sched, _ = plan_place(scene, ob_in_grasp.cpu().numpy(), sched[-1],
+                                                obs_base, seed, verbose)
+                    stages.lap("place_planning_s")
+                    if place_sched is not None:
+                        placed, state_after = execute_place(
+                            scene, state_after, params, target, place_sched, ob_in_grasp, w_f,
+                            c_f, verbose)
+                        stages.lap("place_execution_s")
+                else:
+                    placed = bool(place_floating(scene, state, params, target, ob_in_grasp, w_f,
+                                                 grasp_world))
                     stages.lap("place_execution_s")
                 slip = float(torch.linalg.vector_norm(
                     ob_in_grasp[:3, 3] - torch.tensor([0.02, 0.0, 0.0], device=dev)))
@@ -837,13 +941,16 @@ def main(argv=None):
     ap.add_argument("--use_arm", type=int, default=1,
                     help="gate grasps on IK reachability + RRT plannability")
     ap.add_argument("--arm_exec", type=int, default=1,
-                    help="step the planned arm motion in the scene (pick AND place)")
+                    help="step the planned arm motion in the scene (pick AND place); 0 = "
+                         "floating-gripper baseline")
     ap.add_argument("--instance", type=int, default=None,
                     help="pin the pile to one test instance at scale 1 (default from "
                          "config_run.yml instance_index; -1 = mixed instances at jittered "
                          "scales)")
     ap.add_argument("--arm_dynamics", type=int, default=0)
-    ap.add_argument("--obj_path", default=None)
+    ap.add_argument("--obj_path", default=None,
+                    help="external watertight .obj to evaluate instead of the procedural "
+                         "instances (baked-SDF physics and grid raymarch)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs on the host)")
     args = ap.parse_args(argv)

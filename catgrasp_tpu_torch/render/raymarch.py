@@ -1,11 +1,15 @@
 """SDF-raymarch renderer: depth + instance seg + NUNOCS + normals
-(``catgrasp_tpu/render/raymarch.py`` in PyTorch, CSG geometry).
+(``catgrasp_tpu/render/raymarch.py`` in PyTorch).
 
-Sphere tracing with a fixed step budget through the analytic CSG scene.
-The march is ``ops.render_march.march_csg_batch``: kernel K2 on the GPU, one
-launch a batch of scenes, its plain version on the CPU.  The label passes
-(seg, depth, NUNOCS, normals, xyz) evaluate the scene once more at the
-converged points.
+Sphere tracing with a fixed step budget.  With ``geometry="csg"`` (the
+default) the scene is the analytic CSG trees and the march is
+``ops.render_march.march_csg_batch``: kernel K2 on the GPU, one launch a
+batch of scenes, its plain version on the CPU.  With ``geometry="grid"``
+the scene is the library's baked SDF grids (the arbitrary-mesh path) and the
+march is ``march_grid``: plain PyTorch on the device by design, since K2
+computes CSG only and the JAX package marches grids with its XLA scan, not
+with a Pallas kernel.  The label passes (seg, depth, NUNOCS, normals, xyz)
+evaluate the scene once more at the converged points.
 """
 from __future__ import annotations
 
@@ -13,11 +17,15 @@ import torch
 
 from ..core import transforms as tf
 from ..geom import csg as csglib
+from ..geom import sdf as sdflib
 from ..ops import render_march as rm
 from ..sim.engine import StaticEnv
 from ..sim.types import SceneParams, SceneState, ShapeLib, as_batch, index_scenes
 
 HIT_EPS = 2e-4
+# a baked grid's trilinear interpolation error can overstate the distance,
+# so the grid march caps its step (CSG distances never overstate it)
+GRID_STEP_CAP = 0.05
 
 
 def camera_rays(K: torch.Tensor, cam_in_world: torch.Tensor, H: int, W: int,
@@ -39,6 +47,39 @@ def camera_rays(K: torch.Tensor, cam_in_world: torch.Tensor, H: int, W: int,
     return cam_in_world[:3, 3], d_w, d_cam, tmax
 
 
+def scene_sdf_grid(lib: ShapeLib, state: SceneState, params: SceneParams, x: torch.Tensor):
+    """φ per body at world points x (..., 3) through the baked grids:
+    ((..., N), local points (..., N, 3)).  Inactive bodies read 1e9."""
+    R = tf.quat_to_matrix(state.quat)  # (N,3,3)
+    rel = x[..., None, :] - state.pos  # (...,N,3)
+    loc = torch.einsum("bji,...bj->...bi", R, rel) / params.scale[:, None]
+    phi = sdflib.query_shapes(lib.sdf_values, lib.sdf_lower, lib.sdf_spacing, params.shape_id,
+                              loc) * params.scale
+    return torch.where(state.active, phi, 1e9), loc
+
+
+def march_grid(lib: ShapeLib, state: SceneState, params: SceneParams, o_w, d_w, tmax,
+               env: StaticEnv | None = None, n_steps: int = 64,
+               hit_eps: float = HIT_EPS) -> torch.Tensor:
+    """The march through one scene's baked grids: every body at every ray
+    for every step, each step at most ``GRID_STEP_CAP``.  Returns t (P,)."""
+    if lib.sdf_values is None:
+        raise ValueError("geometry='grid' needs a library built with bake_grids=True")
+    P = d_w.shape[0]
+    t = torch.full((P,), 0.05, device=d_w.device)
+    done = torch.zeros((P,), dtype=torch.bool, device=d_w.device)
+    for _ in range(n_steps):
+        x = o_w + t[:, None] * d_w
+        phi = torch.amin(scene_sdf_grid(lib, state, params, x)[0], dim=-1)
+        if env is not None:
+            phi = torch.minimum(phi, rm.env_sdf(env, x))
+        step = torch.clamp(phi, hit_eps * 0.5, GRID_STEP_CAP)
+        newly_done = phi < hit_eps
+        t = torch.where(done | newly_done, t, torch.minimum(t + step, tmax))
+        done = done | newly_done | (t >= tmax)
+    return t
+
+
 def render(lib: ShapeLib, state: SceneState, params: SceneParams,
            K: torch.Tensor, cam_in_world: torch.Tensor, H: int, W: int,
            env: StaticEnv | None = None, zfar: float = 3.0,
@@ -47,6 +88,7 @@ def render(lib: ShapeLib, state: SceneState, params: SceneParams,
     depth (z in cam frame, 0 = invalid), seg (int32: body index, -2 env,
     -1 background), nocs (NUNOCS coords in [0,1], 0 outside objects),
     normal (cam frame, oriented toward the camera), xyz (cam frame), rgb.
+    ``geometry`` is "csg" or "grid" (the library's baked SDF grids).
     The one-scene case of ``render_batch``."""
     out = render_batch(lib, as_batch(state), as_batch(params), K, cam_in_world, H, W, env=env,
                        zfar=zfar, n_steps=n_steps, with_env=with_env, geometry=geometry)
@@ -56,7 +98,7 @@ def render(lib: ShapeLib, state: SceneState, params: SceneParams,
 def shade(lib: ShapeLib, state: SceneState, params: SceneParams,
           cam_in_world: torch.Tensor, H: int, W: int, env: StaticEnv | None,
           d_w: torch.Tensor, d_cam: torch.Tensor, tmax: torch.Tensor,
-          t: torch.Tensor) -> dict:
+          t: torch.Tensor, geometry: str = "csg") -> dict:
     """The label passes at the marched ray lengths ``t``: one more scene
     evaluation at the converged points gives seg, depth, NUNOCS, normals,
     the organized cloud and a flat-shaded rgb."""
@@ -64,7 +106,8 @@ def shade(lib: ShapeLib, state: SceneState, params: SceneParams,
     P = d_w.shape[0]
     o_w = cam_in_world[:3, 3]
     x = o_w + t[:, None] * d_w
-    phi_b, loc = rm.scene_sdf(lib, state, params, x)
+    grid = geometry == "grid"
+    phi_b, loc = (scene_sdf_grid if grid else rm.scene_sdf)(lib, state, params, x)
     phi_min, body = torch.min(phi_b, dim=-1)
     phi_env = rm.env_sdf(env, x) if env is not None else torch.full((P,), 1e9, device=dev)
 
@@ -84,9 +127,14 @@ def shade(lib: ShapeLib, state: SceneState, params: SceneParams,
     nocs = (loc_win - b[:, 0]) / torch.clamp(b[:, 1] - b[:, 0], min=1e-9)
     nocs = torch.where((seg >= 0)[:, None], torch.clamp(nocs, 0.0, 1.0), 0.0)
 
-    # world normal from the winning body's CSG gradient: one primitive stack
-    # per pixel, not the all-bodies pass
-    _, n_loc_win = csglib.csg_sdf_and_normal(csglib.select_shape(lib.csg, sid_win), loc_win)
+    # world normal from the winning body's gradient (CSG: one primitive
+    # stack per pixel; grid: one 8-corner fetch), not the all-bodies pass
+    if grid:
+        _, n_loc_win = sdflib.query_and_grad_shapes(lib.sdf_values, lib.sdf_lower,
+                                                    lib.sdf_spacing, sid_win, loc_win)
+    else:
+        _, n_loc_win = csglib.csg_sdf_and_normal(csglib.select_shape(lib.csg, sid_win),
+                                                 loc_win)
     R_win = tf.quat_to_matrix(state.quat)[body]  # (P,3,3)
     normal = torch.einsum("pij,pj->pi", R_win, n_loc_win)
     # camera frame, oriented toward the camera
@@ -128,14 +176,15 @@ def render_batch(lib: ShapeLib, states: SceneState, params: SceneParams, K, cam_
     """Render a scene batch (leading axis of states/params) -> dict of
     (B, H, W[, C]) images, as ``render`` gives them for each scene.
 
-    The whole batch is marched in one launch (``march_csg_batch``), as the
-    JAX package vmaps it into one ``pallas_call``; the label passes then run
-    scene by scene, so their peak memory is one frame's whatever the batch.
-    ``scene_chunk`` keeps the JAX signature, where it bounds memory by
-    running sub-batches in sequence; it must divide the batch and changes
-    nothing else here."""
-    if geometry != "csg":
-        raise NotImplementedError("only CSG geometry is ported; baked grids come later")
+    With CSG geometry the whole batch is marched in one launch
+    (``march_csg_batch``), as the JAX package vmaps it into one
+    ``pallas_call``; grid geometry marches scene by scene (``march_grid``).
+    The label passes then run scene by scene, so their peak memory is one
+    frame's whatever the batch.  ``scene_chunk`` keeps the JAX signature,
+    where it bounds memory by running sub-batches in sequence; it must
+    divide the batch and changes nothing else here."""
+    if geometry not in ("csg", "grid"):
+        raise ValueError(f"geometry must be 'csg' or 'grid', got {geometry!r}")
     B = states.pos.shape[0]
     if scene_chunk is not None and scene_chunk < B and B % scene_chunk:
         raise ValueError(f"scene_chunk {scene_chunk} must divide batch {B}")
@@ -144,8 +193,12 @@ def render_batch(lib: ShapeLib, states: SceneState, params: SceneParams, K, cam_
     cam_in_world = torch.as_tensor(cam_in_world, dtype=torch.float32, device=dev)
     env = env if (with_env and env is not None) else None
     o_w, d_w, d_cam, tmax = camera_rays(K, cam_in_world, H, W, zfar)
-    t = rm.march_csg_batch(lib, states, params, o_w, d_w, tmax, env=env, n_steps=n_steps,
-                           hit_eps=HIT_EPS, hw=(H, W))
+    if geometry == "grid":
+        t = [march_grid(lib, index_scenes(states, b), index_scenes(params, b), o_w, d_w, tmax,
+                        env=env, n_steps=n_steps) for b in range(B)]
+    else:
+        t = rm.march_csg_batch(lib, states, params, o_w, d_w, tmax, env=env, n_steps=n_steps,
+                               hit_eps=HIT_EPS, hw=(H, W))
     outs = [shade(lib, index_scenes(states, b), index_scenes(params, b), cam_in_world, H, W,
-                  env, d_w, d_cam, tmax, t[b]) for b in range(B)]
+                  env, d_w, d_cam, tmax, t[b], geometry) for b in range(B)]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

@@ -8,15 +8,18 @@ package's ``vmap(engine.rollout)``.  Per scene:
 
 * **Narrowphase = SDF queries.** Every body carries P surface sample points;
   a contact candidate is (point of body i, collider m).  Colliders are the
-  other bodies (analytic CSG, scaled) and a set of analytic boxes (bin
-  walls, floor, kinematic gripper fingers).  Candidates form a dense
+  other bodies (analytic CSG, scaled; or, with ``narrowphase="grid"``, their
+  baked SDF grids, scaled) and a set of analytic boxes (bin walls, floor,
+  kinematic gripper fingers).  Candidates form a dense
   (..., N, P, M) tensor; reaction forces on body j are a transpose-sum.
 * **Velocity-level Jacobi impulse solver** with split impulse, exact
   tangential effective mass, a friction passivity guard and motor-backed
   grip friction.
 * **Semi-implicit Euler** at PyBullet's default dt=1/240 s.
 
-The grid-SDF narrowphase (arbitrary meshes) is not ported yet.
+The grid narrowphase is the arbitrary-mesh path: a trilinear lookup with its
+analytic gradient in each collider's grid, plain PyTorch on the device, as
+the JAX package computes it in XLA (``geom/sdf.py``).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import torch
 from ..core import transforms as tf
 from ..device import constant, resolve_device
 from ..geom import csg as csglib
+from ..geom import sdf as sdflib
 from .types import SceneParams, SceneState, ShapeLib
 
 DT = 1.0 / 240.0
@@ -145,6 +149,26 @@ def _sdf_vs_bodies(w_pts, state, params, lib):
     return phi, n_world
 
 
+def _sdf_vs_bodies_grid(w_pts, state, params, lib):
+    """:func:`_sdf_vs_bodies` through each collider body's baked SDF grid
+    (``lib.sdf_values``, from ``build_shape_lib(bake_grids=True)``): one
+    8-corner fetch a (point, body) pair gives φ and the normal."""
+    if lib.sdf_values is None:
+        raise ValueError("narrowphase='grid' needs a library built with bake_grids=True")
+    R = tf.quat_to_matrix(state.quat)
+    rel = w_pts[..., None, :] - state.pos[..., None, None, :, :]
+    loc = torch.einsum("...bji,...npbj->...npbi", R, rel) \
+        / params.scale[..., None, None, :, None]
+    phi, n_loc = sdflib.query_and_grad_shapes(lib.sdf_values, lib.sdf_lower, lib.sdf_spacing,
+                                              params.shape_id[..., None, None, :], loc)
+    phi = phi * params.scale[..., None, None, :]
+    n_world = torch.einsum("...bij,...npbj->...npbi", R, n_loc)
+    return phi, n_world
+
+
+_BODY_SDF = {"csg": _sdf_vs_bodies, "grid": _sdf_vs_bodies_grid}
+
+
 def _sdf_vs_env(w_pts, env: StaticEnv):
     """φ and world normal of every point vs every env box: (...,N,P,M), (...,N,P,M,3)."""
     Rm = tf.quat_to_matrix(env.quat)
@@ -157,7 +181,7 @@ def _sdf_vs_env(w_pts, env: StaticEnv):
 
 
 def _solve_contacts(state: SceneState, params: SceneParams, lib: ShapeLib,
-                    env: StaticEnv, dt: float, n_iter: int):
+                    env: StaticEnv, dt: float, n_iter: int, narrowphase: str = "csg"):
     """Jacobi impulse iteration; returns new (linvel, angvel, plin, pang)."""
     N = state.pos.shape[-2]
     batch = state.pos.shape[:-2]
@@ -165,7 +189,7 @@ def _solve_contacts(state: SceneState, params: SceneParams, lib: ShapeLib,
     w_pts = _body_surface_points(state, params, lib)  # (...,N,P,3)
     P = w_pts.shape[-2]
 
-    phi_b, n_b = _sdf_vs_bodies(w_pts, state, params, lib)  # (...,N,P,N[,3])
+    phi_b, n_b = _BODY_SDF[narrowphase](w_pts, state, params, lib)  # (...,N,P,N[,3])
     phi_e, n_e = _sdf_vs_env(w_pts, env)  # (...,N,P,M[,3])
 
     active = state.active
@@ -314,16 +338,17 @@ def step(state: SceneState, params: SceneParams, lib: ShapeLib, env: StaticEnv,
          narrowphase: str = "csg") -> SceneState:
     """One physics step of one scene or of a scene batch.  Damping is given
     PER 1/240 s step (PyBullet's per-second 0.9 at 240 Hz) and rescaled to
-    the actual dt."""
-    if narrowphase != "csg":
-        raise NotImplementedError("only the CSG narrowphase is ported")
+    the actual dt.  ``narrowphase`` is "csg" (analytic trees) or "grid"
+    (baked SDF grids)."""
+    if narrowphase not in _BODY_SDF:
+        raise ValueError(f"narrowphase must be one of {sorted(_BODY_SDF)}, got {narrowphase!r}")
     dev = state.pos.device
     g = constant((0.0, 0.0, gravity), torch.float32, dev)
     dynamic = state.active & (params.mass < STATIC_MASS)
     linvel = state.linvel + torch.where(dynamic[..., None], g * dt, 0.0)
     st = state.replace(linvel=linvel)
 
-    linvel, angvel, plin, pang = _solve_contacts(st, params, lib, env, dt, n_iter)
+    linvel, angvel, plin, pang = _solve_contacts(st, params, lib, env, dt, n_iter, narrowphase)
     lin_keep = (1.0 - linear_damping) ** (dt / DT)
     ang_keep = (1.0 - angular_damping) ** (dt / DT)
     linvel = linvel * lin_keep

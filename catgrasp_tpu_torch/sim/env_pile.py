@@ -115,9 +115,10 @@ def settle(state: SceneState, params: SceneParams, lib: ShapeLib,
 
 
 def settle_fixed(state: SceneState, params: SceneParams, lib: ShapeLib,
-                 env: engine.StaticEnv, cfg: PileConfig, n_steps: int) -> SceneState:
+                 env: engine.StaticEnv, cfg: PileConfig, n_steps: int,
+                 narrowphase: str = "csg") -> SceneState:
     """Fixed-step settle: no data-dependent trip count."""
-    st = engine.rollout(state, params, lib, env, n_steps, dt=cfg.dt)
+    st = engine.rollout(state, params, lib, env, n_steps, dt=cfg.dt, narrowphase=narrowphase)
     return _cull_out_of_bin(st, cfg)
 
 

@@ -13,6 +13,7 @@ import torch
 
 from ..device import resolve_device
 from ..geom import csg as csglib
+from ..geom import sdf as sdflib
 from ..geom.mesh import TriMesh
 
 DENSITY = 7800.0  # steel-ish; reference objects are industrial metal parts
@@ -21,8 +22,9 @@ DENSITY = 7800.0  # steel-ish; reference objects are industrial metal parts
 @dataclass
 class ShapeLib:
     """Library of K shapes (unit scale).  The contact engine and renderer
-    evaluate geometry through the stacked analytic CSG trees.  Per-body
-    uniform scale applies at query time via φ_s(x) = s·φ(x/s)."""
+    evaluate geometry through the stacked analytic CSG trees, or through
+    baked SDF grids (the arbitrary-mesh path) where the library has them.
+    Per-body uniform scale applies at query time via φ_s(x) = s·φ(x/s)."""
 
     csg: csglib.CsgShape  # stacked, leading K axis
     surf_pts: torch.Tensor  # (K, P, 3) contact sample points, body frame
@@ -31,6 +33,9 @@ class ShapeLib:
     inertia_unit: torch.Tensor  # (K, 3) diagonal inertia at unit scale, unit density
     radius: torch.Tensor  # (K,) bounding radius (broadphase)
     bounds: torch.Tensor  # (K, 2, 3) unit-scale AABB (NUNOCS normalization)
+    sdf_values: torch.Tensor | None = None  # (K, D, D, D) baked grids, if any
+    sdf_lower: torch.Tensor | None = None  # (K, 3)
+    sdf_spacing: torch.Tensor | None = None  # (K,)
 
     @property
     def num_shapes(self):
@@ -49,19 +54,21 @@ def build_shape_lib(meshes: list[TriMesh], csg_shapes: list[csglib.CsgShape] | N
     The host-side arithmetic is the JAX package's numpy code, draw for draw,
     so both packages build identical libraries from one seed.  If
     ``csg_shapes`` is None, CSG trees are auto-fit as each mesh's bounding
-    box.  Baked SDF grids (the arbitrary-mesh path) are not ported yet."""
-    if bake_grids:
-        raise NotImplementedError("baked SDF grids are not ported yet; "
-                                  "the port simulates and renders CSG shapes")
+    box.  With ``bake_grids``, each mesh is also baked on the device into a
+    ``dims``-cubed SDF grid (``padding`` around its bounding box) for the
+    grid narrowphase and the grid render."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
-    pts, nrm, vols, inert, rad = [], [], [], [], []
+    grids, pts, nrm, vols, inert, rad = [], [], [], [], [], []
     if csg_shapes is None:
         csg_shapes = []
         for m in meshes:
             b = m.bounds
             csg_shapes.append(csglib.csg_box(b[1] - b[0], center=(b[1] + b[0]) / 2))
     for m in meshes:
+        if bake_grids:
+            grids.append(sdflib.bake_sdf(m.vertices, m.faces, dims=dims, padding=padding,
+                                         device=dev))
         p, n = m.sample_surface(n_surf, rng, return_normals=True)
         pts.append(p)
         nrm.append(n)
@@ -88,6 +95,9 @@ def build_shape_lib(meshes: list[TriMesh], csg_shapes: list[csglib.CsgShape] | N
         inertia_unit=t(np.stack(inert).astype(np.float32)),
         radius=t(np.array(rad, dtype=np.float32)),
         bounds=t(np.stack([m.bounds for m in meshes]).astype(np.float32)),
+        sdf_values=torch.stack([g.values for g in grids]) if grids else None,
+        sdf_lower=torch.stack([g.lower for g in grids]) if grids else None,
+        sdf_spacing=torch.stack([g.spacing for g in grids]) if grids else None,
     )
 
 

@@ -27,7 +27,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 6. a device-time profile (torch.profiler) of 20 settle steps, of one
    attempt's front half and of 20 arm-executed pick steps, by kernel; that
    the pick executor (approach, close, hold, lift) and the place executor
-   (transport, release) never make the host wait for the device
+   (transport, release), and the floating baseline's pick (``execute_pick``)
+   and place (``place_and_drop``), never make the host wait for the device
    (``torch.cuda.set_sync_debug_mode``); the attempt's own collision-gate
    inputs are recorded and K1 is held against its plain version and timed
    on them (the whole gate of one filter call: 2 launches);
@@ -42,12 +43,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    plain version on the round's last render (384x512, 8 nuts and the
    fixture, 6 env boxes): the frame the round rendered through the kernel
    against the plain march's, times, bound;
-8. kernel K3 ``rollout_fused`` against its plain version at the throughput
+8. the rest of the oracle eval, each a round of ``simulate_grasp_rounds``
+   with every launch count set to 0 just before and read just after: a
+   screw round (8 objects, at most 2 attempts) and an hnm round (8
+   objects, 1 attempt), K1 held against its plain version on each round's
+   own NOCS-transfer gate inputs (357,768 and 4,896 poses, 2 launches a
+   filter call) and K2 on each round's frame; a floating-gripper attempt
+   (nut, ``use_arm=0``, 8 objects); a grid round (``--obj_path``
+   ``assets/nut_demo.obj``, 4 objects, 1 attempt, no K2 launch) with the
+   bake's time, the grid render's, and one grid engine step's time,
+   launches and device-busy share;
+9. kernel K3 ``rollout_fused`` against its plain version at the throughput
    entry point's shapes (10 bodies x 32 points, 5 bin boxes) on 128 scenes:
    1, 5 and 50 steps, two kernel runs bit for bit, then a batch with no
    contact for the whole call, a settled batch and a batch with every body
    active;
-9. the second path, once, at full width: ``catgrasp_tpu_torch.bench`` (1,024
+10. the second path, once, at full width: ``catgrasp_tpu_torch.bench`` (1,024
    scenes x 5 calls of 50 steps through K3 and once through the eager engine;
    the collision gate through K1; the IK gate; 9 batches of 8 frames through
    K2, one launch a batch) — again with every launch count set to 0 just
@@ -55,11 +66,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    at that path's own shapes: the hit matrix and two of the frames it
    computed, on its own inputs; K2's batch against each scene marched alone,
    its cull lists, times and tried tiles;
-10. K3's times on the 1,024-scene, 50-step call (kernel, wrapper, plain
+11. K3's times on the 1,024-scene, 50-step call (kernel, wrapper, plain
    version, eager engine) and its bound from that call's own contacts; the
    kernel's time with the iterations off, on settled piles and with every
    body active; its registers, shared memory and blocks an SM;
-11. a ``kernels`` JSON line, the card line, then ``{"ok": true, ...}``.
+12. a ``kernels`` JSON line, the card line, then ``{"ok": true, ...}``.
 
 It imports nothing of the JAX package.  Without a GPU it exits non-zero
 before printing any result.
@@ -214,8 +225,12 @@ def measure_box_hits(name, collision, t_inv, cloud, mask, boxes, offsets, depths
     args = (t_inv, cloud, mask, boxes, offsets, depths, margin)
     if hit_k is None:
         hit_k = collision.box_hits_depths(*args)
+    torch.cuda.synchronize()
+    base_mib = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
     hit_p = collision.box_hits_depths_plain(*args)
     torch.cuda.synchronize()
+    plain_peak_mib = torch.cuda.max_memory_allocated() / 2**20 - base_mib
     if hit_k.shape != (P, D, A) or hit_k.dtype != torch.bool:
         fail(f"box_hits {name}: shape {tuple(hit_k.shape)} dtype {hit_k.dtype}")
     n_diff = int((hit_k != hit_p).sum())
@@ -233,7 +248,8 @@ def measure_box_hits(name, collision, t_inv, cloud, mask, boxes, offsets, depths
     print(f"K1 box_hits [{name}] P={P} C={C} K={len(boxes)} A={A} D={D}, one launch: "
           f"{n_diff} of {hit_k.numel()} (pose, depth, offset) entries differ from the plain "
           f"version (hit rate {frac_hit:.4f}); kernel {ms:.4f} ms ({how}), wrapper "
-          f"{wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
+          f"{wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms (its peak memory above the inputs "
+          f"{plain_peak_mib:.1f} MiB), bound {bound:.4f} ms "
           f"({ops:.3e} ops, {nbytes:.3e} bytes; counted depth by depth as {D} single-depth "
           f"launches would work: {bound_by_depth:.4f} ms, {ops_by_depth:.3e} ops); lane use of "
           f"a one-thread-a-pose mapping without compaction, by depth: a warp "
@@ -242,7 +258,8 @@ def measure_box_hits(name, collision, t_inv, cloud, mask, boxes, offsets, depths
     if n_diff > 1e-5 * hit_k.numel():
         fail(f"box_hits {name}: {n_diff} entries differ (limit 1e-5 of entries)")
     return {"n_diff": n_diff, "n_entries": hit_k.numel(), "ms": ms, "wrapper_ms": wrapper_ms,
-            "timing": how, "plain_ms": plain_ms, "bytes": nbytes, "ops": ops,
+            "timing": how, "plain_ms": plain_ms, "plain_peak_mib": plain_peak_mib,
+            "bytes": nbytes, "ops": ops,
             "ops_by_depth": ops_by_depth, "lane_use_warp": float(np.mean(use_warp)),
             "lane_use_block": float(np.mean(use_block))}
 
@@ -256,6 +273,7 @@ def add_up(parts):
             res[k] = v if k == "timing" else res.get(k, 0) + v
     for k in ("lane_use_warp", "lane_use_block"):
         res[k] /= len(parts)
+    res["plain_peak_mib"] = max(p["plain_peak_mib"] for p in parts)
     return res
 
 
@@ -1055,28 +1073,32 @@ def main_path(dev):
 # the pick-and-place path: one round of the closed-loop eval
 # --------------------------------------------------------------------------
 
-PICKPLACE_STAGES = ("settle_s", "render_s", "occupancy_s", "sample_filter_s", "nocs_filter_s",
+PICKPLACE_STAGES = ("setup_s", "settle_s", "render_s", "occupancy_s", "sample_filter_s", "nocs_filter_s",
                     "scoring_s", "pick_planning_s", "pick_execution_s", "place_planning_s",
                     "place_execution_s", "resettle_s")
 
 
-def pickplace_path(dev):
-    """One round of ``simulate_grasp_rounds`` at full width (nut, 8 objects,
-    the canonical's NOCS-transfer sampler, at most 2 attempts), with every
-    launch count set to 0 just before and read just after; the tallies, each
+def eval_round(dev, label: str, cls: str = "nut", n_objects: int = 8, max_attempts: int = 2,
+               hold: bool = True, **kw):
+    """One round of ``simulate_grasp_rounds`` at full width (the class's
+    canonical and its NOCS-transfer sampler, ``n_objects`` objects, at most
+    ``max_attempts`` attempts; ``kw`` picks the mode), with every launch
+    count set to 0 just before and read just after; the tallies, each
     attempt's outcome and the stage times from its event log and timings.
-    K1's two launches of the last NOCS-transfer filter call and the last
-    render (one K2 launch) are recorded, then held against the plain
-    versions, timed and bounded on those inputs."""
+    With ``hold``, K1's two launches of the last NOCS-transfer filter call
+    and the last render (one K2 launch) are recorded, then held against the
+    plain versions, timed and bounded on those inputs.  Returns the launch
+    counts and a record of the round (with ``k1`` and ``k2`` when held)."""
     import tempfile
 
+    from catgrasp_tpu_torch.core.symmetry import get_symmetry_tfs
     from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
     from catgrasp_tpu_torch.pipelines import run_grasp_simulation as rgs
     from catgrasp_tpu_torch.render import raymarch
 
-    canonical = dict(np.load(os.path.join(REPO, "dataset", "nut_canonical.npz")))
+    canonical = dict(np.load(os.path.join(REPO, "dataset", f"{cls}_canonical.npz")))
     n_codebook = int((canonical["canonical_grasp_scores"] >= 0.95).sum())
-    n_nocs = n_codebook * 12  # the codebook x the nut's 12 symmetries
+    n_nocs = n_codebook * len(get_symmetry_tfs(cls))  # the codebook x the symmetries
     nocs_calls, entry = [], collision.box_hits_depths
 
     def recorder(*args):
@@ -1101,9 +1123,9 @@ def pickplace_path(dev):
     fused_rollout.rollout_fused.launches = 0
     t0 = time.perf_counter()
     try:
-        c = rgs.simulate_grasp_rounds("nut", n_rounds=1, n_objects=8, seed=0,
-                                      max_attempts_per_round=2, canonical=canonical,
-                                      metrics_path=metrics, device=dev, timings=timings)
+        c = rgs.simulate_grasp_rounds(cls, n_rounds=1, n_objects=n_objects, seed=0,
+                                      max_attempts_per_round=max_attempts, canonical=canonical,
+                                      metrics_path=metrics, device=dev, timings=timings, **kw)
         torch.cuda.synchronize()
     finally:
         collision.box_hits_depths = entry
@@ -1119,48 +1141,143 @@ def pickplace_path(dev):
     attempts = [{k: e[k] for k in ("attempt", "target", "n_candidates", "picked", "placed",
                                    "p_T_G")} for e in events if e["kind"] == "attempt"]
     filters = [e for e in events if e["kind"] == "filter"]
-    stage = {k: round(timings.get(k, 0.0), 4) for k in PICKPLACE_STAGES}
-    print(f"pick-and-place path tallies: {json.dumps(tally)}", flush=True)
+    stage = {k: round(timings.get(k, 0.0), 4) for k in PICKPLACE_STAGES if k in timings}
+    print(f"{label} tallies: {json.dumps(tally)}", flush=True)
     for a in attempts:
         print(f"  attempt {json.dumps(a)}", flush=True)
-    print(f"pick-and-place path stage times (s, synchronised, summed over the round): "
+    print(f"{label} stage times (s, synchronised, summed over the round): "
           f"{json.dumps(stage)}; wall {wall:.2f} s", flush=True)
-    print(f"pick-and-place path launches: {json.dumps(launches)}; segments filtered "
+    print(f"{label} launches: {json.dumps(launches)}; segments filtered "
           f"{len(filters)} (K1 4 launches each: cone and NOCS-transfer gates)", flush=True)
-    if not (c.num_task_grasp_succ <= c.num_stable_grasp <= c.num_attempts <= 2
-            and 0 < c.num_objects <= 8):
-        fail(f"inconsistent tallies {tally}")
+    if not (c.num_task_grasp_succ <= c.num_stable_grasp <= c.num_attempts <= max_attempts
+            and 0 < c.num_objects <= n_objects):
+        fail(f"{label}: inconsistent tallies {tally}")
     if c.num_attempts < 1 or len(attempts) != c.num_attempts:
-        fail(f"the round made {c.num_attempts} arm-executed attempts ({len(attempts)} "
-             f"attempt events): the pick was not driven")
+        fail(f"{label}: the round made {c.num_attempts} attempts ({len(attempts)} attempt "
+             f"events): the pick was not driven")
     if events[-2]["kind"] != "tally" or any(events[-2][k] != v for k, v in tally.items()):
-        fail("the event log's tally disagrees with the returned tallies")
+        fail(f"{label}: the event log's tally disagrees with the returned tallies")
     if launches["box_hits"] != 4 * len(filters) or not filters:
-        fail(f"box_hits launched {launches['box_hits']} times for {len(filters)} segments "
-             f"filtered by both samplers (4 each)")
-    if not 1 <= launches["march_csg"] <= 2:
-        fail(f"march_csg launched {launches['march_csg']} times in a round of at most 2 "
-             f"attempts (one render each)")
+        fail(f"{label}: box_hits launched {launches['box_hits']} times for {len(filters)} "
+             f"segments filtered by both samplers (4 each)")
+    renders_expected = (0, 0) if kw.get("obj_path") else (1, max_attempts)
+    if not renders_expected[0] <= launches["march_csg"] <= renders_expected[1]:
+        fail(f"{label}: march_csg launched {launches['march_csg']} times, expected "
+             f"{renders_expected[0]} to {renders_expected[1]} (one a CSG render)")
     if launches["rollout_fused"] != 0:
-        fail("the eval settles with the engine, not rollout_fused")
+        fail(f"{label}: the eval settles with the engine, not rollout_fused")
+    out = {"tally": tally, "attempts": attempts, "stage_s": stage, "wall_s": wall,
+           "launches": launches, "segments_filtered": len(filters), "render": renders[-1]}
+    if not hold:
+        return launches, out
     if len(nocs_calls) != 2:
-        fail(f"recorded {len(nocs_calls)} K1 launches at the NOCS gate's P={n_nocs}")
-    parts = [measure_box_hits(f"NOCS gate, {name}", collision, *args, hit_k=hit)
+        fail(f"{label}: recorded {len(nocs_calls)} K1 launches at the NOCS gate's P={n_nocs}")
+    parts = [measure_box_hits(f"{label}, NOCS gate, {name}", collision, *args, hit_k=hit)
              for name, (args, hit) in zip(("open gripper", "closing volume"), nocs_calls)]
     gate = add_up(parts)
     bound, bound_by = bound_of(gate["ops"], gate["bytes"])
-    print(f"K1 box_hits, the whole NOCS-transfer gate of one filter call on the round's own "
+    print(f"K1 box_hits, the whole NOCS-transfer gate of one filter call on the {label}'s own "
           f"inputs (P={n_nocs}, 2 launches, 4 depths each): {gate['n_diff']} of "
           f"{gate['n_entries']} entries differ; kernel {gate['ms']:.4f} ms, wrappers "
-          f"{gate['wrapper_ms']:.4f} ms, plain {gate['plain_ms']:.3f} ms, bound {bound:.4f} ms "
-          f"({bound_by})", flush=True)
+          f"{gate['wrapper_ms']:.4f} ms, plain {gate['plain_ms']:.3f} ms (peak memory "
+          f"{gate['plain_peak_mib']:.1f} MiB), bound {bound:.4f} ms ({bound_by})", flush=True)
     gate.update(bound_ms=bound, bound_by=bound_by, P=n_nocs)
     # K2 on the round's last render: the frame it made through the kernel
     # against the plain march's on the same scene and rays
-    (lib, state, params, K, cam, H, W), kw, frame = renders[-1]
-    k2 = check_march("pick-and-place path", lib, state, params, K, cam, H, W, kw["env"],
-                     frame=frame)
-    return launches, gate, k2
+    (lib, state, params, K, cam, H, W), rkw, frame = renders[-1]
+    k2 = check_march(label, lib, state, params, K, cam, H, W, rkw["env"], frame=frame)
+    out.update(k1=gate, k2=k2)
+    return launches, out
+
+
+def nocs_gate_row(label: str, cls: str, gate: dict) -> dict:
+    return {"shapes": f"the NOCS-transfer gate of one filter call on the {label}'s own inputs "
+                      f"({cls}): P={gate['P']}; the segment's collision subsample, at most 512 "
+                      f"points (3 open boxes), and the background cloud, at most 4,096 "
+                      f"(closing box); A=7, D=4",
+            "mismatch_frac": gate["n_diff"] / gate["n_entries"], "ms": gate["ms"],
+            "wrapper_ms": gate["wrapper_ms"], "plain_ms": gate["plain_ms"],
+            "plain_peak_mib": gate["plain_peak_mib"], "bound_ms": gate["bound_ms"],
+            "bound_by": gate["bound_by"]}
+
+
+def pickplace_path(dev):
+    """The nut round: at most 2 attempts on 8 nuts, seed 0.  Its outcome
+    has been attempt 0 closing on air and attempt 1 picked and placed in
+    every run on the card; it is printed beside that.  Returns (launches, K1
+    at the NOCS gate, K2 on the round's frame)."""
+    launches, out = eval_round(dev, "pick-and-place path", "nut", 8, 2)
+    outcome = [(a["picked"], a["placed"]) for a in out["attempts"]]
+    print(f"pick-and-place path outcome {outcome}: attempt 0 on air and attempt 1 picked and "
+          f"placed, as in every earlier run: {outcome == [(False, False), (True, True)]}",
+          flush=True)
+    return launches, out["k1"], out["k2"]
+
+
+def floating_waits(scene, state, params) -> None:
+    """``no_host_waits`` over the floating baseline's two executors on the
+    main path's pile: ``execute_pick`` (10 close, 10 hold steps) over the
+    first body, and ``place_and_drop`` of that body (a 60-step drop)."""
+    from catgrasp_tpu_torch.core import transforms as tf
+    from catgrasp_tpu_torch.pipelines import run_grasp_simulation as rgs
+    from catgrasp_tpu_torch.sim import env_semantic as es
+
+    dev = state.pos.device
+    G = torch.eye(4, device=dev)
+    G[:3, :3] = torch.tensor([[0.0, 1, 0], [0, 0, -1], [-1, 0, 0]], device=dev)
+    G[:3, 3] = state.pos[0] + torch.tensor([0.0, 0.0, 0.02], device=dev)
+    steps = rgs.CLOSE_STEPS, rgs.LIFT_STEPS
+    rgs.CLOSE_STEPS, rgs.LIFT_STEPS = 10, 10
+    try:
+        no_host_waits("the floating pick executor: 10 close, 10 hold steps",
+                      lambda: rgs.execute_pick(scene.lib, state, params, scene.env_bin, 0, G,
+                                               scene.gripper.spec))
+    finally:
+        rgs.CLOSE_STEPS, rgs.LIFT_STEPS = steps
+    oig = tf.pose_inverse(G) @ tf.pose_from_qt(state.quat[0], state.pos[0])
+    width = torch.full((), 0.02, device=dev)
+    no_host_waits("the floating place: place_and_drop, 8 waypoints and a 60-step drop",
+                  lambda: es.place_and_drop(scene.lib, params.shape_id[0], scene.fixture_idx,
+                                            params.scale[0], tf.pose_inverse(oig),
+                                            scene.class_name, width, scene.gripper.spec))
+
+
+def grid_round(dev):
+    """The ``--obj_path`` path: one round of 4 demo nuts (baked grids, the
+    grid narrowphase and march), one attempt, through ``eval_round``; then
+    the bake's time, the grid render's time on the round's last frame, and
+    one grid engine step's time, launches and device-busy share on that
+    pile."""
+    from catgrasp_tpu_torch.geom import sdf
+    from catgrasp_tpu_torch.geom.mesh import TriMesh
+    from catgrasp_tpu_torch.geom import primitives as prim
+    from catgrasp_tpu_torch.render import raymarch
+    from catgrasp_tpu_torch.sim import engine
+
+    obj = os.path.join(REPO, "assets", "nut_demo.obj")
+    launches, out = eval_round(dev, "grid round", "nut", 4, 1, hold=False, obj_path=obj)
+    (lib, state, params, K, cam, H, W), rkw, frame = out["render"]
+    if rkw.get("geometry") != "grid" or lib.sdf_values is None:
+        fail("grid round: the render did not run on the baked grids")
+    if not all(torch.isfinite(v.float()).all() for v in frame.values()) \
+            or not (frame["seg"] >= 0).any():
+        fail("grid round: render output")
+    meshes = [TriMesh.load_obj(obj), prim.place_fixture("nut", None)]
+    bake_ms = cuda_ms(lambda: [sdf.bake_sdf(m.vertices, m.faces, dims=56, padding=0.003,
+                                            device=dev) for m in meshes], 3)
+    render_ms = cuda_ms(lambda: raymarch.render(lib, state, params, K, cam, H, W, **rkw), 5)
+    env = rkw["env"]
+    step = lambda: engine.step(state, params, lib, env, narrowphase="grid")  # noqa: E731
+    step_ms = cuda_ms(step, 20)
+    csg_step_ms = cuda_ms(lambda: engine.step(state, params, lib, env), 20)
+    print(f"grid round: bake of the demo nut and the fixture at 56^3 {bake_ms:.3f} ms "
+          f"({', '.join(str(len(m.faces)) for m in meshes)} faces); the grid render at "
+          f"{H}x{W} {render_ms:.3f} ms (plain PyTorch march, 0 K2 launches); one grid engine "
+          f"step {step_ms:.3f} ms (the CSG step on the same pile, bounding-box placeholder "
+          f"trees: {csg_step_ms:.3f} ms)", flush=True)
+    device_profile("one grid engine step", step, step_ms / 1e3)
+    out.update(bake_ms=bake_ms, render_ms=render_ms, step_ms=step_ms)
+    return launches, out
 
 
 def no_host_waits(label: str, fn) -> None:
@@ -1300,8 +1417,17 @@ def main() -> None:
                                                    home, base, ee, ob_in_grasp, hold,
                                                    scene.gripper.spec, n_move=10, n_drop=10))
 
+    floating_waits(scene, state, params)
+
     k1 = eval_gate(dev, scene, state, params)
     pp_launches, k1_nocs, k2_pp = pickplace_path(dev)
+    # the rest of the oracle eval: screw and hnm, the floating gripper, the
+    # baked-grid geometry
+    screw_launches, screw = eval_round(dev, "screw round", "screw", 8, 2)
+    hnm_launches, hnm = eval_round(dev, "hnm round", "hnm", 8, 1)
+    float_launches, floating = eval_round(dev, "floating attempt", "nut", 8, 1, hold=False,
+                                          use_arm=False)
+    grid_launches, grid = grid_round(dev)
     k3 = check_rollout(dev, logs["fused_rollout"])
     bench_launches, at_bench = bench_path(dev)
 
@@ -1339,7 +1465,13 @@ def main() -> None:
                        f"cloud, at most 4,096 (closing box); A=7, D=4",
              "mismatch_frac": k1_nocs["n_diff"] / k1_nocs["n_entries"], "ms": k1_nocs["ms"],
              "wrapper_ms": k1_nocs["wrapper_ms"], "plain_ms": k1_nocs["plain_ms"],
-             "bound_ms": k1_nocs["bound_ms"], "bound_by": k1_nocs["bound_by"]}},
+             "bound_ms": k1_nocs["bound_ms"], "bound_by": k1_nocs["bound_by"]},
+         "launches_screw_round": screw_launches["box_hits"],
+         "at_nocs_gate_screw": nocs_gate_row("screw round", "screw", screw["k1"]),
+         "launches_hnm_round": hnm_launches["box_hits"],
+         "at_nocs_gate_hnm": nocs_gate_row("hnm round", "hnm", hnm["k1"]),
+         "launches_floating_attempt": float_launches["box_hits"],
+         "launches_grid_round": grid_launches["box_hits"]},
         {"name": "march_csg", "route": "cuda", "source": "catgrasp_tpu_torch/csrc/march_csg.cu",
          "replaces": "catgrasp_tpu/ops/render_march.py:224", "launches": launches["march_csg"],
          "launches_bench_path": bench_launches["march_csg"],
@@ -1355,13 +1487,25 @@ def main() -> None:
          "launches_pickplace_path": pp_launches["march_csg"],
          "at_pickplace_path": {k: k2_pp[k] for k in (
              "shapes", "seg_agree", "max_abs_err", "ms", "wrapper_ms", "timing", "plain_ms",
-             "bound_ms", "bound_by")}},
+             "bound_ms", "bound_by")},
+         "launches_screw_round": screw_launches["march_csg"],
+         "at_screw_round": {k: screw["k2"][k] for k in (
+             "shapes", "seg_agree", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "launches_hnm_round": hnm_launches["march_csg"],
+         "at_hnm_round": {k: hnm["k2"][k] for k in (
+             "shapes", "seg_agree", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "launches_floating_attempt": float_launches["march_csg"],
+         "launches_grid_round": grid_launches["march_csg"]},
         {"name": "rollout_fused", "route": "cuda",
          "source": "catgrasp_tpu_torch/csrc/fused_rollout.cu",
          "replaces": "catgrasp_tpu/ops/fused_rollout.py:531",
          "launches": launches["rollout_fused"],
          "launches_bench_path": bench_launches["rollout_fused"],
          "launches_pickplace_path": pp_launches["rollout_fused"],
+         "launches_screw_round": screw_launches["rollout_fused"],
+         "launches_hnm_round": hnm_launches["rollout_fused"],
+         "launches_floating_attempt": float_launches["rollout_fused"],
+         "launches_grid_round": grid_launches["rollout_fused"],
          "max_abs_err": k3["max_abs_err"], "within_tol_frac": k3["within_tol_frac"],
          "ms": k3["ms"], "wrapper_ms": k3["wrapper_ms"], "prepare_ms": k3["prepare_ms"],
          "timing": k3["timing"], "plain_ms": k3["plain_ms"], "engine_ms": k3["engine_ms"],

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from catgrasp_tpu_torch import bench, convert
-from catgrasp_tpu_torch.geom import csg, primitives
+from catgrasp_tpu_torch.geom import csg, primitives, sdf, sdf_io
 from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
 from catgrasp_tpu_torch.pipelines import run_grasp_simulation as rgs
 from catgrasp_tpu_torch.sim import engine, env_pile
@@ -30,8 +30,14 @@ names = {"jax", "flax", "catgrasp_tpu"}
 bad = sorted(n for n in sys.modules
              if n in names or any(n.startswith(p + ".") for p in names))
 print("\\n".join(bad))
+print("port", " ".join(sorted(n for n in sys.modules if n.startswith("catgrasp_tpu_torch"))))
 print("modules", len([n for n in sys.modules if n.startswith("catgrasp_tpu_torch")]))
 """
+# modules the probe must reach, the baked-SDF geometry and the floating
+# baseline's place among them
+NEEDED = ("catgrasp_tpu_torch.geom.sdf", "catgrasp_tpu_torch.geom.sdf_io",
+          "catgrasp_tpu_torch.geom.mesh", "catgrasp_tpu_torch.sim.env_semantic",
+          "catgrasp_tpu_torch.render.raymarch", "catgrasp_tpu_torch.pipelines.run_grasp_simulation")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -42,7 +48,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert r.returncode == 0, r.stderr
     lines = r.stdout.strip().splitlines()
     assert lines[-1].startswith("modules") and int(lines[-1].split()[1]) >= 20
-    assert lines[:-1] == [], f"imported: {lines[:-1]}"
+    assert lines[-2].startswith("port ")
+    assert set(NEEDED) <= set(lines[-2].split()[1:])
+    assert lines[:-2] == [], f"imported: {lines[:-2]}"
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
@@ -66,6 +74,11 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         lambda: rgs.simulate_grasp_rounds("nut", n_rounds=1, n_objects=2, render_hw=(8, 8),
                                           verbose=False),
         lambda: rgs.main(["--class_name", "nut", "--n_rounds", "1", "--oracle", "1"]),
+        lambda: rgs.setup_scene("nut", n_objects=2, render_hw=(8, 8),
+                                obj_path=os.path.join(REPO, "assets", "nut_demo.obj")),
+        lambda: sdf.bake_sdf(mesh.vertices, mesh.faces, dims=8),
+        lambda: build_shape_lib([mesh], n_surf=8, bake_grids=True),
+        lambda: sdf_io.grid_from_file(os.path.join(REPO, "assets", "nut_demo.obj")),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -18,6 +18,9 @@ points and normals differ by ~1e-7 relative.  That can flip a decision that
 sits on a threshold (a silhouette pixel, a voxel exactly at the observed
 depth, a point exactly on a gripper box face).  Such ties are rare, hence
 candidate-mask agreement >= 99.9% and each counter within 0.1% of JAX's.
+
+These tests run the nut pile; ``tests/test_torch_slice_classes.py`` runs
+the same checks on a screw pile and an hnm pile.
 """
 import dataclasses
 
@@ -50,12 +53,13 @@ torch.set_num_threads(2)
 H, W, FX = 48, 64, 300.0  # zoomed in so each nut covers ~100 pixels
 GRID = (24, 24, 24)  # 8.3 mm voxels over the 0.2 m reach
 SAMPLER = dict(max_num_samples=4, n_sphere_dir=4, approach_step=0.005)  # 900 poses
-CANONICAL = "dataset/nut_canonical.npz"
-N_CODEBOOK = 64  # the canonical's best grasps: 64 x 12 symmetries = 768 poses
+CANONICAL = "dataset/{}_canonical.npz"
+# the canonical's best grasps: for the nut 64 x 12 symmetries = 768 poses
+N_CODEBOOK = {"nut": 64, "screw": 1024, "hnm": 1024}
 
 
-def _small_scene():
-    sc = rgs.setup_scene("nut", n_objects=3, render_hw=(H, W), device="cpu")
+def _small_scene(cls="nut"):
+    sc = rgs.setup_scene(cls, n_objects=3, render_hw=(H, W), device="cpu")
     sc.K = torch.tensor([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
     sc.grid_dims = GRID
     return sc
@@ -161,11 +165,11 @@ def _jax_front_half(sc, lib, state, params, env, rng, ids_out, stable_px, nocs=N
         if nocs is not None:
             ob_in_cam = np.linalg.inv(sc.cam) @ np.asarray(
                 jtf.pose_from_qt(state.quat[sid], state.pos[sid]))
-            mesh = jprim.make_instance("nut", "test", int(params.shape_id[sid]))
+            mesh = jprim.make_instance(sc.class_name, "test", int(params.shape_id[sid]))
             T_nocs = to_nunocs_transform(mesh.vertices * float(params.scale[sid]))
             nocs_pose = (ob_in_cam @ np.linalg.inv(T_nocs)).astype(np.float32)
             poses_n, valid_n, _ = nocs.sample_grasps(
-                jnp.asarray(nocs_pose), jnp.asarray(get_symmetry_tfs("nut")), bg,
+                jnp.asarray(nocs_pose), jnp.asarray(get_symmetry_tfs(sc.class_name)), bg,
                 np.ones(len(bg), bool), P, np.ones(n_sub, bool),
                 cam_in_world=jnp.asarray(t2n(sc.cam_in_base)), filter_ik=True, chunk=128,
                 adjust_depth=True, backend="xla")
@@ -201,20 +205,21 @@ class _NoCone(_GivenIds):
         return poses, torch.zeros_like(valid), stats
 
 
-@pytest.fixture(scope="module")
-def settled():
-    """A 3-nut pile plus fixture, reset and stepped 60 times in JAX."""
-    sc = _small_scene()
+def _settled(cls):
+    """A 3-object pile of ``cls`` plus fixture, reset and stepped 60 times
+    in JAX."""
+    sc = _small_scene(cls)
     from catgrasp_tpu.geom import csg as jcsg
     from catgrasp_tpu.sim import arm as jarm
     from catgrasp_tpu.sim.types import build_shape_lib as jbuild
-    fit = jprim.instance_params("nut", "test", 0)
-    meshes = [jprim.make_instance("nut", "test", i) for i in range(2)]
-    csgs = [jcsg.make_csg_instance("nut", "test", i) for i in range(2)]
-    lib = jbuild(meshes + [jprim.place_fixture("nut", fit)],
-                 csgs + [jcsg.csg_place_fixture("nut", fit)], n_surf=256)
+    fit = jprim.instance_params(cls, "test", 0)
+    meshes = [jprim.make_instance(cls, "test", i) for i in range(sc.n_inst)]
+    csgs = [jcsg.make_csg_instance(cls, "test", i) for i in range(sc.n_inst)]
+    lib = jbuild(meshes + [jprim.place_fixture(cls, fit)],
+                 csgs + [jcsg.csg_place_fixture(cls, fit)], n_surf=256)
     n = sc.n_objects
-    params = JSceneParams.create(lib, jnp.array([0] * n + [2], jnp.int32), jnp.ones(n + 1))
+    params = JSceneParams.create(lib, jnp.array([0] * n + [sc.fixture_idx], jnp.int32),
+                                 jnp.ones(n + 1))
     params = params.replace(mass=params.mass.at[n].set(1e9),
                             inertia=params.inertia.at[n].set(1e9),
                             friction=params.friction.at[n].set(0.1))
@@ -242,6 +247,11 @@ def settled():
     return sc, lib, state, params, env
 
 
+@pytest.fixture(scope="module")
+def settled():
+    return _settled("nut")
+
+
 def _stable_normals(sc, lib, state, params, env):
     from catgrasp_tpu_torch.render import raymarch as praymarch
     p = praymarch.render(sc.lib, port_state(state), port_params(params), sc.K,
@@ -254,6 +264,10 @@ def _stable_normals(sc, lib, state, params, env):
 
 
 def test_slice_matches_jax(settled):
+    _check_slice(settled)
+
+
+def _check_slice(settled):
     sc, lib, state, params, env = settled
     queue = []
     j_out, j_tried = _jax_front_half(sc, lib, state, params, env, np.random.default_rng(0),
@@ -290,10 +304,15 @@ def test_slice_with_canonical_matches_jax(settled, cone):
     equal, poses within 1e-4 where both sides kept them.  With the cone's
     candidates dropped on both sides (``off``), a segment is found on the
     NOCS-transfer candidates alone."""
+    _check_slice_with_canonical(settled, cone)
+
+
+def _check_slice_with_canonical(settled, cone):
     sc, lib, state, params, env = settled
-    can = dict(np.load(CANONICAL))
+    can = dict(np.load(CANONICAL.format(sc.class_name)))
+    n_codebook = N_CODEBOOK[sc.class_name]
     j_nocs = JNocs(JGripper.default(), can["canonical_grasps"], can["canonical_grasp_scores"],
-                   score_larger_than=0.95, max_n_grasp=N_CODEBOOK)
+                   score_larger_than=0.95, max_n_grasp=n_codebook)
     queue = []
     _, j_tried = _jax_front_half(sc, lib, state, params, env, np.random.default_rng(0), queue,
                                  _stable_normals(*settled), nocs=j_nocs,
@@ -301,7 +320,7 @@ def test_slice_with_canonical_matches_jax(settled, cone):
     assert j_tried and j_tried[-1]["nocs_valid"].any(), "the JAX NOCS sampler kept nothing"
     p_nocs = NocsTransferGraspSampler(sc.gripper, can["canonical_grasps"],
                                       can["canonical_grasp_scores"], score_larger_than=0.95,
-                                      max_n_grasp=N_CODEBOOK)
+                                      max_n_grasp=n_codebook)
     cone_sampler = (_GivenIds if cone == "on" else _NoCone)(queue, gripper=sc.gripper, **SAMPLER)
     scp = dataclasses.replace(sc, cone=cone_sampler, nocs=p_nocs)
     res = rgs.oracle_attempt(scp, port_state(state), port_params(params),
