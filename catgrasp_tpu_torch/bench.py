@@ -33,7 +33,7 @@ import time
 import torch
 
 from .core import transforms as tf
-from .device import resolve_device
+from .device import resolve_device, sync
 from .geom import csg as csglib
 from .geom import primitives as prim
 from .grasp.filter import ADJUST_OFFSETS, _static_open_boxes
@@ -49,11 +49,6 @@ ENV_SHAPES = (("nut", 0), ("screw", 0), ("hnm", 0), ("nut", 3))
 RENDER_SHAPES = (("nut", 0), ("screw", 0), ("hnm", 0))
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def _readback(x: torch.Tensor) -> float:
     """Force a device -> host read-back, so the clock stops after the work."""
     return float(x.sum())
@@ -63,12 +58,12 @@ def _timed(dev: torch.device, fn, n_calls: int, out_of):
     """Seconds for ``n_calls`` calls of ``fn`` (each given the last result),
     after one untimed warm-up call; returns (seconds, last result)."""
     res = fn(None)
-    _sync(dev)
+    sync(dev)
     _readback(out_of(res))
     t0 = time.perf_counter()
     for _ in range(n_calls):
         res = fn(res)
-    _sync(dev)
+    sync(dev)
     _readback(out_of(res))
     return time.perf_counter() - t0, res
 
@@ -93,10 +88,10 @@ def env_steps_phase(lib, env, states, params, dt: float, steps_per_call: int, n_
         n_calls, lambda st: st.pos)
     fused = batch * steps_per_call * n_calls / secs
     engine.rollout_batch(states, params, lib, env, 1, dt=dt)
-    _sync(dev)
+    sync(dev)
     t0 = time.perf_counter()
     st = engine.rollout_batch(states, params, lib, env, steps_per_call, dt=dt)
-    _sync(dev)
+    sync(dev)
     _readback(st.pos)
     unfused = batch * steps_per_call / (time.perf_counter() - t0)
     return fused, unfused, final

@@ -7,6 +7,12 @@ sides can compute on identical inputs.  ``ShapeLib``'s nested CSG tree
 takes the keys ``csg.types``, ``csg.ops``, ``csg.params`` and
 ``csg.offsets``; its baked grids, where the dict has them, the keys
 ``sdf_values``, ``sdf_lower`` and ``sdf_spacing``.
+
+The nets' weights cross over the same way: ``flax_state_dict`` turns a
+flax parameter tree (numpy arrays, as ``predict.ckpt.read_params`` reads
+it from a checkpoint) into the ``state_dict`` of the port's module, whose
+submodules carry the flax names
+(``PointNetEncoder_0.STN_1.MLPStack_0.Dense_2``).
 """
 from __future__ import annotations
 
@@ -67,3 +73,33 @@ def static_env_from_numpy(d: dict, device=None) -> StaticEnv:
                      enabled=_t(d, "enabled", dev, torch.bool),
                      imp_budget=_t(d, "imp_budget", dev),
                      grip=_t(d, "grip", dev, torch.bool))
+
+
+def flax_state_dict(params: dict, prefix: str = "") -> dict:
+    """The port module's state from a flax parameter tree, the layout of
+    each kernel picked by its rank and module name: Dense (in, out) ->
+    Linear (out, in); Conv DHWIO -> OIDHW; ConvTranspose DHWIO -> (I, O,
+    D, H, W) with the spatial axes flipped (flax's transposed conv,
+    ``transpose_kernel=False``, applies the kernel unflipped, torch's
+    ``conv_transpose3d`` flipped); GroupNorm ``scale`` -> ``weight``."""
+    out = {}
+    for name, v in params.items():
+        if isinstance(v, dict):
+            out.update(flax_state_dict(v, f"{prefix}{name}."))
+            continue
+        a = np.asarray(v)
+        module = prefix[:-1].rsplit(".", 1)[-1]
+        if name == "kernel":
+            name = "weight"
+            if a.ndim == 2:
+                a = a.T
+            elif a.ndim == 5 and module.startswith("ConvTranspose"):
+                a = np.flip(a, (0, 1, 2)).transpose(3, 4, 0, 1, 2)
+            elif a.ndim == 5 and module.startswith("Conv"):
+                a = a.transpose(4, 3, 0, 1, 2)
+            else:
+                raise ValueError(f"unexpected kernel {prefix}{name} of shape {a.shape}")
+        elif name == "scale":
+            name = "weight"
+        out[prefix + name] = torch.tensor(np.ascontiguousarray(a))
+    return out

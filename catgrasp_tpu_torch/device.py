@@ -28,3 +28,9 @@ def constant(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.T
     host: a copy from pageable host memory makes the host wait for the
     stream.  The tensor is shared, so callers never write into it."""
     return torch.tensor(values, dtype=dtype, device=device)
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the device's queued work (nothing to wait for on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

@@ -1,0 +1,121 @@
+"""Instance-segmentation net (``catgrasp_tpu/nn/voxelnet.py`` in
+PyTorch), inference only: voxelize the scene cloud into a dense grid, a
+3-level dense 3-D U-Net, and per-point heads (an offset to the instance
+centre, bounded to 5 cm, and an objectness logit).
+
+Precision follows the JAX module's default ``compute_dtype``: the
+convolutions and transposed convolutions run in bfloat16 (inputs, kernels,
+outputs and the bias add), every GroupNorm and the head in float32.
+Convolutions pad SAME (1 voxel for 3x3x3).  Submodules carry the flax names
+(``VoxelUNet_0.ConvBlock_3.Conv_1``) for ``convert.flax_state_dict``;
+the grid runs in torch's (1, C, D, H, W) layout.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .pointnet import GN_EPS
+
+COMPUTE_DTYPE = torch.bfloat16
+N_FEATS = 3  # per-point features: the normal
+
+
+def voxelize(xyz: torch.Tensor, feats: torch.Tensor, origin: torch.Tensor,
+             voxel_size: float, grid_dims: tuple):
+    """Mean-pool point features into a dense grid: xyz (N, 3), feats (N, C)
+    -> (grid (D, H, W, C + 1), the last channel occupancy in {0, 1}; the
+    flat voxel index of each point (N,)).  Points outside the grid are
+    clipped to its border voxels, not dropped.  One ``index_add_``."""
+    D, H, W = grid_dims
+    # times the f32 reciprocal, not over the voxel size: XLA rewrites the
+    # JAX module's division by a constant so under jit, which is how the
+    # net was trained and is run; a point on a voxel face (a flat face at
+    # a whole number of voxels from the origin) lands a voxel lower
+    inv = torch.reciprocal(torch.tensor(voxel_size, dtype=torch.float32, device=xyz.device))
+    ijk = torch.floor((xyz - origin) * inv).to(torch.int64)
+    hi = torch.tensor([D - 1, H - 1, W - 1], device=xyz.device)
+    ijk = torch.minimum(torch.clamp(ijk, min=0), hi)
+    flat = (ijk[:, 0] * H + ijk[:, 1]) * W + ijk[:, 2]
+    f = torch.cat([feats, torch.ones_like(feats[:, :1])], dim=-1)
+    sums = f.new_zeros((D * H * W, f.shape[1])).index_add_(0, flat, f)
+    count = torch.clamp(sums[:, -1:], min=1.0)
+    grid = torch.cat([sums[:, :-1] / count, torch.clamp(sums[:, -1:], max=1.0)], dim=-1)
+    return grid.reshape(D, H, W, -1), flat
+
+
+def _conv(conv: nn.Module, x: torch.Tensor, transposed: bool = False) -> torch.Tensor:
+    """flax's Conv / ConvTranspose with dtype=bfloat16: input, kernel and
+    output in bf16, the bias added to the bf16 output."""
+    dt = COMPUTE_DTYPE
+    if transposed:
+        y = F.conv_transpose3d(x.to(dt), conv.weight.to(dt), stride=2)
+    else:
+        y = F.conv3d(x.to(dt), conv.weight.to(dt), padding=1)
+    return y + conv.bias.to(dt)[:, None, None, None]
+
+
+class ConvBlock(nn.Module):
+    """(3x3x3 conv -> GroupNorm -> ReLU) x 2."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        g = min(8, features)
+        self.Conv_0 = nn.Conv3d(in_features, features, 3, padding=1)
+        self.GroupNorm_0 = nn.GroupNorm(g, features, eps=GN_EPS)
+        self.Conv_1 = nn.Conv3d(features, features, 3, padding=1)
+        self.GroupNorm_1 = nn.GroupNorm(g, features, eps=GN_EPS)
+
+    def forward(self, x):
+        x = F.relu(self.GroupNorm_0(_conv(self.Conv_0, x).float()))
+        return F.relu(self.GroupNorm_1(_conv(self.Conv_1, x).float()))
+
+
+class VoxelUNet(nn.Module):
+    """3-level dense U-Net over a (1, C, D, H, W) grid -> (base, D, H, W)."""
+
+    def __init__(self, in_features: int = 4, base: int = 16):
+        super().__init__()
+        self.ConvBlock_0 = ConvBlock(in_features, base)
+        self.ConvBlock_1 = ConvBlock(base, base * 2)
+        self.ConvBlock_2 = ConvBlock(base * 2, base * 4)
+        self.ConvTranspose_0 = nn.ConvTranspose3d(base * 4, base * 2, 2, stride=2)
+        self.ConvBlock_3 = ConvBlock(base * 4, base * 2)
+        self.ConvTranspose_1 = nn.ConvTranspose3d(base * 2, base, 2, stride=2)
+        self.ConvBlock_4 = ConvBlock(base * 2, base)
+
+    def forward(self, grid):
+        e1 = self.ConvBlock_0(grid)
+        e2 = self.ConvBlock_1(F.max_pool3d(e1, 2))
+        e3 = self.ConvBlock_2(F.max_pool3d(e2, 2))
+        u2 = _conv(self.ConvTranspose_0, e3, transposed=True).float()
+        u2 = self.ConvBlock_3(torch.cat([u2, e2], dim=1))
+        u1 = _conv(self.ConvTranspose_1, u2, transposed=True).float()
+        return self.ConvBlock_4(torch.cat([u1, e1], dim=1))[0]
+
+
+class SegNet(nn.Module):
+    """(xyz (N, 3), normals (N, 3), origin (3,)) -> (offsets (N, 3), objectness
+    logits (N,)), over a ``grid_dims`` grid of ``voxel_size`` voxels whose
+    corner is ``origin``."""
+
+    def __init__(self, base: int = 16, voxel_size: float = 0.004,
+                 grid_dims: tuple = (96, 96, 48)):
+        super().__init__()
+        self.voxel_size, self.grid_dims = voxel_size, tuple(grid_dims)
+        self.VoxelUNet_0 = VoxelUNet(N_FEATS + 1, base)
+        self.Dense_0 = nn.Linear(3 + N_FEATS + base, 64)
+        self.GroupNorm_0 = nn.GroupNorm(8, 64, eps=GN_EPS)
+        self.Dense_1 = nn.Linear(64, 64)
+        self.Dense_2 = nn.Linear(64, 3)
+        self.Dense_3 = nn.Linear(64, 1)
+
+    def forward(self, xyz, feats, origin):
+        grid, flat = voxelize(xyz, feats, origin, self.voxel_size, self.grid_dims)
+        vox = self.VoxelUNet_0(grid.permute(3, 0, 1, 2)[None])  # (base, D, H, W)
+        per_pt = vox.reshape(vox.shape[0], -1).T[flat]  # one gather
+        h = self.Dense_0(torch.cat([xyz - origin, feats, per_pt], dim=-1))
+        h = F.relu(self.Dense_1(F.relu(self.GroupNorm_0(h))))
+        # offsets bounded to the parts' scale (1-5 cm)
+        return 0.05 * torch.tanh(self.Dense_2(h)), self.Dense_3(h)[:, 0]

@@ -2,10 +2,10 @@
 (``catgrasp_tpu/pipelines/run_grasp_simulation.py`` in PyTorch).
 
 Per round: scene set-up, pile reset and settle; then per attempt: render ->
-ground-truth segments -> per segment: occupancy-densified background, the
-oracle NUNOCS pose, cone and NOCS-transfer grasp sampling + filtering ->
-task-affordance scoring P(T|G), analytic quality P(G), thresholds on
-P(T,G) and an engagement tiebreak -> IK + RRT to the pregrasp over the best
+segments -> per segment: occupancy-densified background, the NUNOCS pose,
+cone and NOCS-transfer grasp sampling + filtering -> task-affordance
+scoring P(T|G), quality P(G), thresholds on P(T,G) and an engagement
+tiebreak -> IK + RRT to the pregrasp over the best
 12 -> arm-executed pick (approach, close, hold gate, lift) -> arm-executed
 place over the category's fixture (symmetry loop, RRT transport,
 insertion, release) -> re-settle -> tallies ``num_objects / num_attempts
@@ -20,9 +20,14 @@ gripper closes on it in the pile (``execute_pick``) and the place is
 device, and physics and rendering run through the baked grids (the grid
 narrowphase and the grid march) instead of CSG.
 
-Ported: oracle perception for the three categories, CSG and grid geometry,
-the arm-executed and the floating pick and place.  Learned perception and
-articulated arm dynamics raise ``NotImplementedError`` naming the
+Perception is the oracle's (the renderer's ground-truth segments, the
+simulator's poses, the analytic wrench quality) or learned
+(``--oracle 0 --artifacts``: the seg net's segments with MeanShift,
+retried at other bandwidths, the NUNOCS net's RANSAC pose and the grasp
+net's P(G); a grasp predicter alone gives P(G) in oracle mode too).  With
+learned segments the simulator tracks the body the segment mostly shows,
+rebound after the pick to the body most in the grasp's closing channel.
+Articulated arm dynamics raise ``NotImplementedError`` naming the
 ``ROADMAP.md`` item that ports them.
 
 The numpy randomness makes the JAX loop's calls in the same order: the
@@ -36,7 +41,7 @@ from __future__ import annotations
 
 import argparse
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -44,7 +49,7 @@ import torch
 from ..config.loader import load_config
 from ..core import transforms as tf
 from ..core.symmetry import get_symmetry_tfs
-from ..device import constant, resolve_device
+from ..device import constant, resolve_device, sync
 from ..geom import csg as csglib
 from ..geom import occupancy
 from ..geom import primitives as prim
@@ -55,14 +60,15 @@ from ..grasp.quality import parallel_jaw_quality
 from ..grasp.sampler import NocsTransferGraspSampler, PointConeGraspSampler
 from ..kin import iiwa, planner
 from ..pipelines.make_canonical import to_nunocs_transform
+from ..predict.artifacts import load_predicters
 from ..render import raymarch
 from ..sim import arm as simarm
 from ..sim import engine, env_pile
 from ..sim import env_semantic as es
-from ..sim.env_grasp import (GripperSpec, closing_step, closing_touched_init,
-                             finger_contact_points, gripper_env)
+from ..sim.env_grasp import (GripperSpec, closing_channel_mask, closing_step,
+                             closing_touched_init, finger_contact_points, gripper_env)
 from ..sim.types import SceneParams, SceneState, ShapeLib, build_shape_lib
-from ..utils.metrics import MetricsLogger
+from ..utils.metrics import MetricsLogger, StageClock
 
 Q_HOME = np.zeros(7, np.float32)  # straight-up home (clear of the bin)
 LIFT_HEIGHT = 0.25
@@ -80,6 +86,9 @@ MAX_CANDIDATES = 128
 MAX_OBSTACLE_PTS = 1024
 PICK_TRIES = 12  # candidates the pick gate tries, in order
 RRT_MAX_ITER = 500
+# learned segmentation retries an attempt at these multiples of the
+# MeanShift bandwidth (merged or split clusters) before giving up the round
+BANDWIDTH_RETRIES = (1.0, 0.67, 1.5)
 
 
 @dataclass
@@ -206,11 +215,6 @@ def setup_scene(class_name: str = "nut", n_objects: int = 5, cfg_run: dict | Non
                      fix_pts_base=fix_pts_base, geometry=geometry)
 
 
-def _sync(dev: torch.device) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-
-
 def make_round_pile(scene: EvalScene, rng: np.random.Generator,
                     generator: torch.Generator, settle_steps: int = 500,
                     timings: dict | None = None):
@@ -247,12 +251,12 @@ def make_round_pile(scene: EvalScene, rng: np.random.Generator,
         active=torch.ones(n + 1, dtype=torch.bool, device=dev),
     )
     if timings is not None:
-        _sync(dev)
+        sync(dev)
         t1 = time.perf_counter()
         timings["reset_s"] = t1 - t0
     state = settle_keep_fixture(scene, state, params, settle_steps)
     if timings is not None:
-        _sync(dev)
+        sync(dev)
         timings["settle_s"] = time.perf_counter() - t1
     return state, params
 
@@ -286,15 +290,19 @@ class AttemptFront:
     """What one attempt's front half produced."""
 
     out: dict  # the render: depth, seg, xyz, normal, nocs, rgb (tensors)
+    # the render's xyz (H, W, 3) and ground-truth body ids (H, W), and the
+    # objects' active flags (n,), on the host
+    xyz: np.ndarray
+    seg_body: np.ndarray
+    active: np.ndarray
     found: Found | None
     # one entry per segment tried: seg id, then per sampler ("cone", and
     # "nocs" with a canonical) the candidate count, the valid mask, the
     # valid count and the filter's rejection counters
     tried: list
-    # wall seconds of the render, the occupancy fills and the two samplers'
-    # sample+filter calls, each read where the host already waits for the
-    # device
-    timings: dict
+    # learned segmentation: (bandwidth scale, segments) of each bandwidth
+    # at which no segment gave candidates
+    bandwidth_misses: list = field(default_factory=list)
 
 
 def _filtered(poses: torch.Tensor, valid: torch.Tensor, stats: dict) -> dict:
@@ -316,82 +324,127 @@ def oracle_nocs_pose(scene: EvalScene, state: SceneState, params: SceneParams,
     return (ob_in_cam @ np.linalg.inv(T_nocs)).astype(np.float32)
 
 
-def oracle_attempt(scene: EvalScene, state: SceneState, params: SceneParams,
-                   rng: np.random.Generator, generator: torch.Generator) -> AttemptFront:
-    """One attempt's front half in oracle perception: render, try the
-    ground-truth segments from largest to smallest, and per segment build
-    the background cloud, the oracle NUNOCS pose and the cone (and, with a
-    canonical, NOCS-transfer) candidates; return at the first segment where
-    their union is non-empty."""
+def segment_body(seg_body: np.ndarray, m: np.ndarray, active: np.ndarray,
+                 n_objects: int) -> int | None:
+    """The simulated body a learned segment's pixels mostly show (ground
+    truth, for the simulator's bookkeeping only: its closing law tracks
+    one body), or None when they show none or an inactive one."""
+    inside = seg_body[m & (seg_body >= 0)]
+    if len(inside) == 0:
+        return None
+    target = int(np.bincount(inside, minlength=n_objects).argmax())
+    return target if active[target] else None
+
+
+def attempt_front(scene: EvalScene, state: SceneState, params: SceneParams,
+                  rng: np.random.Generator, generator: torch.Generator, oracle: bool = True,
+                  predicters: dict | None = None, timings: dict | None = None) -> AttemptFront:
+    """One attempt's front half: render, try the segments from largest to
+    smallest, and per segment build the background cloud, the NUNOCS pose
+    and the cone (and, with a canonical, NOCS-transfer) candidates; return
+    at the first segment where their union is non-empty.
+
+    The segments are the ground truth's, or, with ``oracle`` off and a seg
+    predicter, the seg net's over the visible objects' points, tried again
+    at 0.67 and 1.5 times the bandwidth when no segment gives candidates;
+    the pose is the simulator's, or, with ``oracle`` off, the NUNOCS net's
+    (a segment whose fit is not valid is skipped).  With a ``timings``
+    dict, the wall seconds of the render, the occupancy fills, the two
+    samplers' sample+filter calls and, with learned perception, the nets
+    and their post-processing (seg_net_s, meanshift_s, nocs_net_s,
+    ransac_s) are added to it, the device synchronised at each stage's
+    end."""
     n, dev, H, W = scene.n_objects, scene.device, scene.H, scene.W
     active = state.active[:n].cpu().numpy()
-    t0 = time.perf_counter()
+    clock = StageClock(timings, dev)
     out = raymarch.render(scene.lib, state, params, scene.K,
                           torch.as_tensor(scene.cam, device=dev), H, W,
                           env=scene.env_bin, geometry=scene.geometry)
     seg_body = out["seg"].cpu().numpy()  # ground-truth body ids
     xyz = out["xyz"].cpu().numpy()
     normal = out["normal"].cpu().numpy()
-    timings = {"render_s": time.perf_counter() - t0, "occupancy_s": 0.0,
-               "sample_filter_s": 0.0, "nocs_filter_s": 0.0}
+    clock.lap("render_s")
 
     min_px = max(20, (H * W) // 2500)
-    seg_ids = sorted((i for i in range(n) if active[i]), key=lambda i: -(seg_body == i).sum())
-    tried = []
-    for sid in seg_ids:
-        m = seg_body == sid
-        if m.sum() < min_px:
-            break  # sorted: the rest are smaller
-        t0 = time.perf_counter()
-        pts = xyz[m]
-        nrm = normal[m]
-        # background = visible non-target points + occupancy-densified
-        # occluded space
-        bg_m = ~m & (seg_body != -1)
-        depth_bg = torch.where(torch.as_tensor(m, device=dev), 0.0, out["depth"])
-        occ_c, occ_m = occupancy.background_cloud_from_depth(
-            depth_bg, scene.K, out["seg"], -1, grid_dims=scene.grid_dims, pad=1e-3,
-            center=torch.as_tensor(pts.mean(0), device=dev), reach=0.1)
-        occ_pts = occ_c[occ_m].cpu().numpy()
-        t1 = time.perf_counter()
-        timings["occupancy_s"] += t1 - t0
-        bg = np.concatenate([xyz[bg_m], occ_pts.astype(np.float32)])
-        if len(bg) == 0:
-            bg = np.full((1, 3), 999.0, np.float32)
-        elif len(bg) > MAX_BACKGROUND_PTS:
-            bg = bg[rng.choice(len(bg), MAX_BACKGROUND_PTS, replace=False)]
-        nocs_pose = oracle_nocs_pose(scene, state, params, sid)
+    learned_seg = not oracle and "seg" in (predicters or {})
+    tried, misses = [], []
+    for bw_scale in BANDWIDTH_RETRIES if learned_seg else (1.0,):
+        if learned_seg:
+            vm = seg_body >= 0
+            part = {} if timings is not None else None
+            labels, n_seg = predicters["seg"].predict(xyz[vm], normal[vm],
+                                                      bandwidth_scale=bw_scale, timings=part)
+            clock.add(part)
+            seg = np.full(seg_body.shape, -1, np.int64)
+            seg[vm] = labels
+            seg_ids, seg_t = range(max(n_seg, 1)), torch.as_tensor(seg, device=dev)
+        else:
+            seg, seg_ids, seg_t = seg_body, [i for i in range(n) if active[i]], out["seg"]
+        seg_ids = sorted(seg_ids, key=lambda i: -(seg == i).sum())
+        for sid in seg_ids:
+            m = seg == sid
+            if m.sum() < min_px:
+                break  # sorted: the rest are smaller
+            target = segment_body(seg_body, m, active, n) if learned_seg else sid
+            if target is None:
+                continue
+            pts = xyz[m]
+            nrm = normal[m]
+            # background = visible non-target points + occupancy-densified
+            # occluded space
+            bg_m = ~m & (seg_body != -1)
+            depth_bg = torch.where(torch.as_tensor(m, device=dev), 0.0, out["depth"])
+            occ_c, occ_m = occupancy.background_cloud_from_depth(
+                depth_bg, scene.K, seg_t, -1, grid_dims=scene.grid_dims, pad=1e-3,
+                center=torch.as_tensor(pts.mean(0), device=dev), reach=0.1)
+            occ_pts = occ_c[occ_m].cpu().numpy()
+            clock.lap("occupancy_s")
+            bg = np.concatenate([xyz[bg_m], occ_pts.astype(np.float32)])
+            if len(bg) == 0:
+                bg = np.full((1, 3), 999.0, np.float32)
+            elif len(bg) > MAX_BACKGROUND_PTS:
+                bg = bg[rng.choice(len(bg), MAX_BACKGROUND_PTS, replace=False)]
+            if oracle:
+                nocs_pose = oracle_nocs_pose(scene, state, params, target)
+            else:
+                part = {} if timings is not None else None
+                res = predicters["nocs"].predict(pts, nrm, timings=part)
+                clock.add(part)
+                if not res["valid"]:
+                    continue
+                nocs_pose = res["nocs_pose"].astype(np.float32)
 
-        n_sub = min(len(pts), MAX_COLLISION_PTS)
-        ids = rng.choice(len(pts), n_sub, replace=False)
-        bg_t = torch.as_tensor(bg, device=dev)
-        bg_mask = torch.ones(len(bg), dtype=torch.bool, device=dev)
-        cone = _filtered(*scene.cone.sample_grasps(
-            torch.as_tensor(pts[ids], device=dev), torch.as_tensor(nrm[ids], device=dev),
-            background_cloud=bg_t, background_mask=bg_mask, generator=generator,
-            cam_in_world=scene.cam_in_base, filter_ik=True, adjust_depth=True))
-        t2 = time.perf_counter()
-        timings["sample_filter_s"] += t2 - t1
-        entry = {"seg": int(sid), "cone": cone, "nocs": None}
-        cand, prov = [cone["cand"]], [np.zeros(cone["n_valid"], np.int32)]
-        if scene.nocs is not None:
-            nocs = _filtered(*scene.nocs.sample_grasps(
-                nocs_pose=torch.as_tensor(nocs_pose, device=dev),
-                symmetry_tfs=scene.sym, background_cloud=bg_t, background_mask=bg_mask,
-                collision_cloud=pts[ids], collision_mask=np.ones(n_sub, bool),
+            n_sub = min(len(pts), MAX_COLLISION_PTS)
+            ids = rng.choice(len(pts), n_sub, replace=False)
+            bg_t = torch.as_tensor(bg, device=dev)
+            bg_mask = torch.ones(len(bg), dtype=torch.bool, device=dev)
+            cone = _filtered(*scene.cone.sample_grasps(
+                torch.as_tensor(pts[ids], device=dev), torch.as_tensor(nrm[ids], device=dev),
+                background_cloud=bg_t, background_mask=bg_mask, generator=generator,
                 cam_in_world=scene.cam_in_base, filter_ik=True, adjust_depth=True))
-            timings["nocs_filter_s"] += time.perf_counter() - t2
-            entry["nocs"] = nocs
-            cand.append(nocs["cand"])
-            prov.append(np.ones(nocs["n_valid"], np.int32))
-        tried.append(entry)
-        grasps_cam = np.concatenate(cand)
-        if len(grasps_cam):
-            found = Found(mask=m, target=int(sid), pts=pts, nrm=nrm, bg_m=bg_m,
-                          nocs_pose=nocs_pose, grasps_cam=grasps_cam,
-                          prov=np.concatenate(prov))
-            return AttemptFront(out=out, found=found, tried=tried, timings=timings)
-    return AttemptFront(out=out, found=None, tried=tried, timings=timings)
+            clock.lap("sample_filter_s")
+            entry = {"seg": int(sid), "cone": cone, "nocs": None}
+            cand, prov = [cone["cand"]], [np.zeros(cone["n_valid"], np.int32)]
+            if scene.nocs is not None:
+                nocs = _filtered(*scene.nocs.sample_grasps(
+                    nocs_pose=torch.as_tensor(nocs_pose, device=dev),
+                    symmetry_tfs=scene.sym, background_cloud=bg_t, background_mask=bg_mask,
+                    collision_cloud=pts[ids], collision_mask=np.ones(n_sub, bool),
+                    cam_in_world=scene.cam_in_base, filter_ik=True, adjust_depth=True))
+                clock.lap("nocs_filter_s")
+                entry["nocs"] = nocs
+                cand.append(nocs["cand"])
+                prov.append(np.ones(nocs["n_valid"], np.int32))
+            tried.append(entry)
+            grasps_cam = np.concatenate(cand)
+            if len(grasps_cam):
+                found = Found(mask=m, target=int(target), pts=pts, nrm=nrm, bg_m=bg_m,
+                              nocs_pose=nocs_pose, grasps_cam=grasps_cam,
+                              prov=np.concatenate(prov))
+                return AttemptFront(out, xyz, seg_body, active, found, tried, misses)
+        if learned_seg:
+            misses.append((bw_scale, len(seg_ids)))
+    return AttemptFront(out, xyz, seg_body, active, None, tried, misses)
 
 
 # ---------------------------------------------------------------------------
@@ -428,11 +481,14 @@ class Scores:
     order: list  # candidate indices in the order the pick gate tries them
 
 
-def score_candidates(scene: EvalScene, cfg_run: dict, found: Found) -> Scores:
+def score_candidates(scene: EvalScene, cfg_run: dict, found: Found,
+                     predicters: dict | None = None, timings: dict | None = None) -> Scores:
     """P(T|G) from the canonical codebook (1 without one), P(G) from the
-    analytic wrench quality, the thresholds on P(G), P(T|G) and P(T,G), and
-    the order: threshold-passing viable candidates first, by P(T,G) to two
-    decimals and then engagement depth, then the rest in the same order."""
+    grasp net's expected quality when a grasp predicter is loaded (its
+    ``grasp_net_s`` added to ``timings``), else from the analytic wrench
+    quality, the thresholds on P(G), P(T|G) and P(T,G), and the order:
+    threshold-passing viable candidates first, by P(T,G) to two decimals and
+    then engagement depth, then the rest in the same order."""
     dev = scene.device
     grasps_cam = found.grasps_cam
     canonical = scene.canonical
@@ -443,9 +499,14 @@ def score_candidates(scene: EvalScene, cfg_run: dict, found: Found) -> Scores:
         p_T_given_G = np.ones(len(grasps_cam), np.float32)
     pts = torch.as_tensor(found.pts, device=dev)
     g = torch.as_tensor(grasps_cam, device=dev)
-    q = parallel_jaw_quality(pts, torch.as_tensor(found.nrm, device=dev), g,
-                             scene.gripper.spec).cpu().numpy()
-    p_G = np.clip(q / 0.3, 0.0, 1.0).astype(np.float32)
+    if predicters and "grasp" in predicters:
+        net = predicters["grasp"]
+        p_G = net.expected_quality(net.predict_batch(found.pts, found.nrm, grasps_cam,
+                                                     timings=timings)[2])
+    else:
+        q = parallel_jaw_quality(pts, torch.as_tensor(found.nrm, device=dev), g,
+                                 scene.gripper.spec).cpu().numpy()
+        p_G = np.clip(q / 0.3, 0.0, 1.0).astype(np.float32)
     p_T_G = p_T_given_G * p_G
 
     ok = ((p_G >= cfg_run.get("p_G_thres", 0.5))
@@ -746,38 +807,31 @@ class EvalCounters:
     num_task_grasp_succ: int = 0
 
 
-_LEARNED = "learned perception is not ported: ROADMAP.md §1, 'Learned perception'"
-
-
 def _check_mode(oracle, predicters, arm_dynamics):
-    if not oracle or predicters:
-        raise NotImplementedError(_LEARNED)
     if arm_dynamics:
         raise NotImplementedError(
             "articulated arm dynamics are not ported: ROADMAP.md §1, 'Rest' (kin/dynamics.py)")
+    if not oracle and "nocs" not in (predicters or {}):
+        raise ValueError("learned perception (oracle off) needs the NUNOCS predicter: pass "
+                         "predicters from predict.artifacts.load_predicters")
 
 
-class _Stages:
-    """Wall seconds by stage, summed into ``timings`` (synchronising the
-    device at each stage end), or nothing when ``timings`` is None."""
-
-    def __init__(self, timings: dict | None, dev: torch.device):
-        self.timings, self.dev = timings, dev
-        self.t0 = time.perf_counter()
-
-    def add(self, parts: dict | None):
-        """Add stage times measured elsewhere, and restart the clock."""
-        for k, v in (parts or {}).items():
-            self.timings[k] = self.timings.get(k, 0.0) + v
-        self.t0 = time.perf_counter()
-
-    def lap(self, key: str):
-        if self.timings is None:
-            return
-        _sync(self.dev)
-        t = time.perf_counter()
-        self.timings[key] = self.timings.get(key, 0.0) + t - self.t0
-        self.t0 = t
+def rebind_target_to_channel(xyz: np.ndarray, seg_body: np.ndarray, grasp_cam: np.ndarray,
+                             target: int, active: np.ndarray, spec: GripperSpec,
+                             n_objects: int) -> int:
+    """The active body with the most observed points inside this grasp's
+    closing channel (ground-truth seg, for the simulator's bookkeeping
+    only), or ``target`` when the channel holds none: a merged learned
+    segment can put the chosen grasp on another body than the segment's
+    majority, and the closing law tracks one body."""
+    vis = seg_body >= 0
+    p_g = (xyz[vis] - grasp_cam[:3, 3]) @ grasp_cam[:3, :3]
+    in_chan = closing_channel_mask(p_g, spec)
+    if not in_chan.any():
+        return target
+    cnt = np.bincount(seg_body[vis][in_chan].astype(np.int64), minlength=n_objects)[:n_objects]
+    cnt[~active] = 0
+    return int(cnt.argmax()) if cnt.any() else target
 
 
 def simulate_grasp_rounds(class_name: str = "nut", n_rounds: int = 2,
@@ -792,14 +846,18 @@ def simulate_grasp_rounds(class_name: str = "nut", n_rounds: int = 2,
                           device=None, timings: dict | None = None) -> EvalCounters:
     """The closed-loop eval: ``n_rounds`` piles of ``n_objects``, up to
     ``max_attempts_per_round`` pick-and-place attempts each.  Returns the
-    tallies.  With a ``timings`` dict, the wall seconds of each stage are
-    summed into it (the device synchronised at each stage end)."""
+    tallies.  ``predicters`` (``predict.artifacts.load_predicters``) give
+    learned perception with ``oracle`` off: the seg net's segments (when
+    loaded) and the NUNOCS net's pose; a grasp predicter gives P(G) in
+    either mode.  With a ``timings`` dict, the wall seconds of each stage
+    are summed into it (the device synchronised at each stage end;
+    ``scoring_s`` includes ``grasp_net_s``)."""
     _check_mode(oracle, predicters, arm_dynamics)
     dev = resolve_device(device)
     mlog = MetricsLogger(metrics_path, run="eval", class_name=class_name,
                          seed=seed, oracle=oracle)
     cfg_run = cfg_run or load_config("config_run.yml")
-    stages = _Stages(timings, dev)
+    stages = StageClock(timings, dev)
     scene = setup_scene(class_name, n_objects, cfg_run, render_hw, instance,
                         canonical=canonical, device=dev, obj_path=obj_path)
     stages.lap("setup_s")
@@ -813,6 +871,7 @@ def simulate_grasp_rounds(class_name: str = "nut", n_rounds: int = 2,
     ee_in_grasp = torch.as_tensor(scene.gripper.ee_in_grasp, device=dev)
     base = torch.as_tensor(scene.base_in_world, device=dev)
     counters = EvalCounters()
+    learned_seg = not oracle and "seg" in (predicters or {})
 
     for rnd in range(n_rounds):
         pile_t = {} if timings is not None else None
@@ -823,14 +882,21 @@ def simulate_grasp_rounds(class_name: str = "nut", n_rounds: int = 2,
         for attempt in range(max_attempts_per_round):
             if not bool(state.active[:n].any()):
                 break
-            front = oracle_attempt(scene, state, params, rng, gen)
-            stages.add(front.timings if timings is not None else None)
+            front_t = {} if timings is not None else None
+            front = attempt_front(scene, state, params, rng, gen, oracle, predicters,
+                                  timings=front_t)
+            stages.add(front_t)
             for t in front.tried:
                 mlog.event("filter", round=rnd, attempt=attempt, seg=t["seg"],
                            n_valid=t["cone"]["n_valid"], **t["cone"]["stats"])
+            if verbose:
+                for bw_scale, n_seg in front.bandwidth_misses:
+                    print(f"round {rnd} attempt {attempt}: no candidates at bandwidth "
+                          f"x{bw_scale} ({n_seg} segments)")
             if front.found is None:
                 if verbose:
-                    print(f"round {rnd} attempt {attempt}: no grasp candidates on any segment")
+                    print(f"round {rnd} attempt {attempt}: no grasp candidates on any segment"
+                          + (" at any bandwidth" if front.bandwidth_misses else ""))
                 break
             f = front.found
             target = f.target
@@ -838,13 +904,14 @@ def simulate_grasp_rounds(class_name: str = "nut", n_rounds: int = 2,
                 sel = rng.choice(len(f.grasps_cam), MAX_CANDIDATES, replace=False)
                 f.grasps_cam, f.prov = f.grasps_cam[sel], f.prov[sel]
 
-            sc = score_candidates(scene, cfg_run, f)
+            net_t = {} if timings is not None else None
+            sc = score_candidates(scene, cfg_run, f, predicters, timings=net_t)
             stages.lap("scoring_s")
+            stages.add(net_t)
 
             pick_plan = None
             if use_arm:
-                xyz = front.out["xyz"].cpu().numpy()
-                obs_base = obstacles_in_base(scene, xyz, f.bg_m, rng)
+                obs_base = obstacles_in_base(scene, front.xyz, f.bg_m, rng)
                 pick, pick_plan, n_ik_fail, n_plan_fail = plan_pick(
                     scene, f.grasps_cam, sc.order, obs_base, seed)
                 stages.lap("pick_planning_s")
@@ -859,6 +926,12 @@ def simulate_grasp_rounds(class_name: str = "nut", n_rounds: int = 2,
                     break
             else:
                 pick = sc.order[0]
+            if learned_seg:
+                new_t = rebind_target_to_channel(front.xyz, front.seg_body, f.grasps_cam[pick],
+                                                 target, front.active, spec, n)
+                if new_t != target and verbose:
+                    print(f"    target rebind {target} -> {new_t} (grasp channel majority)")
+                target = new_t
 
             counters.num_attempts += 1
             arm = use_arm and arm_exec
@@ -934,7 +1007,8 @@ def main(argv=None):
     ap.add_argument("--n_objects", type=int, default=5)
     ap.add_argument("--canonical", default=None)
     ap.add_argument("--artifacts", default=None,
-                    help="learned perception (not ported: oracle mode only)")
+                    help="artifact dir with nunocs/grasp/seg checkpoints (enables learned "
+                         "perception; use with --oracle 0)")
     ap.add_argument("--oracle", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--metrics", default=None, help="JSONL metrics path")
@@ -957,12 +1031,15 @@ def main(argv=None):
 
     cfg_run = load_config("config_run.yml")
     class_name = args.class_name or cfg_run.get("class_name", "nut")
-    if args.artifacts:
-        raise NotImplementedError(_LEARNED)
     canonical = dict(np.load(args.canonical)) if args.canonical else None
+    predicters = None
+    if args.artifacts:
+        predicters = load_predicters(args.artifacts, class_name, device=args.device)
+        print(f"loaded predicters: {sorted(predicters)}")
     t0 = time.perf_counter()
     c = simulate_grasp_rounds(class_name, args.n_rounds, args.n_objects, cfg_run,
-                              oracle=bool(args.oracle), canonical=canonical, seed=args.seed,
+                              oracle=bool(args.oracle), canonical=canonical,
+                              predicters=predicters, seed=args.seed,
                               metrics_path=args.metrics,
                               use_arm=bool(args.use_arm), arm_exec=bool(args.arm_exec),
                               instance=args.instance, obj_path=args.obj_path,

@@ -12,6 +12,8 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..device import sync
+
 
 class MetricsLogger:
     """Append-only JSONL event log.
@@ -47,6 +49,29 @@ class MetricsLogger:
 
     def __exit__(self, *exc):
         self.close()
+
+
+class StageClock:
+    """Wall seconds by stage, summed into ``timings`` (synchronising the
+    device at each stage's end), or nothing when ``timings`` is None."""
+
+    def __init__(self, timings: dict | None, dev: torch.device):
+        self.timings, self.dev = timings, dev
+        self.t0 = time.perf_counter()
+
+    def add(self, parts: dict | None):
+        """Add stage times measured elsewhere, and restart the clock."""
+        for k, v in (parts or {}).items():
+            self.timings[k] = self.timings.get(k, 0.0) + v
+        self.t0 = time.perf_counter()
+
+    def lap(self, key: str):
+        if self.timings is None:
+            return
+        sync(self.dev)
+        t = time.perf_counter()
+        self.timings[key] = self.timings.get(key, 0.0) + t - self.t0
+        self.t0 = t
 
 
 def _jsonable(v):

@@ -70,7 +70,18 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    version, eager engine) and its bound from that call's own contacts; the
    kernel's time with the iterations off, on settled piles and with every
    body active; its registers, shared memory and blocks an SM;
-12. a ``kernels`` JSON line, the card line, then ``{"ok": true, ...}``.
+12. the learned round: the three nut nets (seg, NUNOCS, grasp) loaded by
+   the port's own checkpoint reader from ``artifacts_tracked/nut``, then a
+   round of ``simulate_grasp_rounds`` in learned perception (``oracle`` off:
+   the seg net's segments with MeanShift and their bandwidth retries, the
+   NUNOCS net's RANSAC pose, the grasp net's P(G); nut, 8 objects, the
+   canonical, at most 2 attempts) with every launch count set to 0 just
+   before and read just after: tallies, outcomes, stage times with the
+   nets' own; K1 held against its plain version on the round's
+   NOCS-transfer gate and K2 on its frame; each net's device time a call
+   at full width, with its multiply-adds; and the seg net's bf16 forward on
+   the card held against the same module on the CPU, on the round's cloud;
+13. a ``kernels`` JSON line, the card line, then ``{"ok": true, ...}``.
 
 It imports nothing of the JAX package.  Without a GPU it exits non-zero
 before printing any result.
@@ -88,6 +99,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s off the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12  # dense, on the tensor cores
 N_POSES = 254_848  # 64 samples x 181 rotations x 22 depths
 
 
@@ -377,7 +389,7 @@ def eval_gate(dev, scene, state, params):
 
     collision.box_hits_depths = recorder
     try:
-        rgs.oracle_attempt(scene, state, params, np.random.default_rng(0),
+        rgs.attempt_front(scene, state, params, np.random.default_rng(0),
                            torch.Generator(device=dev).manual_seed(0))
     finally:
         collision.box_hits_depths = entry
@@ -1020,13 +1032,12 @@ def main_path(dev):
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(0)
     state, params = rgs.make_round_pile(scene, rng, gen, settle_steps=500, timings=times)
-    res = rgs.oracle_attempt(scene, state, params, rng, gen)
+    res = rgs.attempt_front(scene, state, params, rng, gen, timings=times)
     tried = [t["cone"] | {"seg": t["seg"]} for t in res.tried]
     torch.cuda.synchronize()
     launches = {"box_hits": collision.box_hits.launches,
                 "march_csg": render_march.march_csg.launches,
                 "rollout_fused": fused_rollout.rollout_fused.launches}
-    times.update(res.timings)
     times["total_s"] = time.perf_counter() - t0
     print("main path stage times (s, synchronised): "
           + json.dumps({k: round(v, 6) for k, v in times.items()}), flush=True)
@@ -1076,6 +1087,8 @@ def main_path(dev):
 PICKPLACE_STAGES = ("setup_s", "settle_s", "render_s", "occupancy_s", "sample_filter_s", "nocs_filter_s",
                     "scoring_s", "pick_planning_s", "pick_execution_s", "place_planning_s",
                     "place_execution_s", "resettle_s")
+# learned perception's own stages (scoring_s includes grasp_net_s)
+NET_STAGES = ("seg_net_s", "meanshift_s", "nocs_net_s", "ransac_s", "grasp_net_s")
 
 
 def eval_round(dev, label: str, cls: str = "nut", n_objects: int = 8, max_attempts: int = 2,
@@ -1141,7 +1154,8 @@ def eval_round(dev, label: str, cls: str = "nut", n_objects: int = 8, max_attemp
     attempts = [{k: e[k] for k in ("attempt", "target", "n_candidates", "picked", "placed",
                                    "p_T_G")} for e in events if e["kind"] == "attempt"]
     filters = [e for e in events if e["kind"] == "filter"]
-    stage = {k: round(timings.get(k, 0.0), 4) for k in PICKPLACE_STAGES if k in timings}
+    stage = {k: round(timings.get(k, 0.0), 4) for k in PICKPLACE_STAGES + NET_STAGES
+             if k in timings}
     print(f"{label} tallies: {json.dumps(tally)}", flush=True)
     for a in attempts:
         print(f"  attempt {json.dumps(a)}", flush=True)
@@ -1280,6 +1294,138 @@ def grid_round(dev):
     return launches, out
 
 
+def segnet_macs(grid_dims, n_pts: int, base: int = 16, c_in: int = 4) -> float:
+    """Multiply-adds of one SegNet forward (``nn/voxelnet.py``): the five
+    ConvBlocks (two 3x3x3 convs each) at their grid sizes, the two 2x2x2
+    transposed convs, and the per-point head."""
+    v1 = float(np.prod(grid_dims))
+    v2, v3 = v1 / 8, v1 / 64
+    blocks = ((v1, c_in, base), (v2, base, 2 * base), (v3, 2 * base, 4 * base),
+              (v2, 4 * base, 2 * base), (v1, 2 * base, base))
+    macs = sum(v * 27 * (ci * co + co * co) for v, ci, co in blocks)
+    macs += v3 * 8 * 4 * base * 2 * base + v2 * 8 * 2 * base * base
+    return macs + n_pts * ((3 + 3 + base) * 64 + 64 * 64 + 64 * 4)
+
+
+def pointnet_macs(n_clouds: int, n_pts: int, seg_head: bool, n_out: int, c_in: int = 6) -> float:
+    """Multiply-adds of one PointNetCls / PointNetSeg forward
+    (``nn/pointnet.py``) on ``n_clouds`` clouds of ``n_pts`` points: per
+    point the two STNs' shared MLPs, the transforms, the encoder's MLPs and
+    (segmentation) the per-point head; per cloud the STNs' pooled heads and
+    (classification) the cloud's head."""
+    per_pt = (c_in + 64) * 64 + 2 * (64 * 128 + 128 * 1024)  # the STNs' MLPs
+    per_pt += 3 * 3 + 64 * 64 + c_in * 64 + 64 * 128 + 128 * 1024
+    per_cloud = 2 * (1024 * 512 + 512 * 256) + 256 * (3 * 3 + 64 * 64)
+    if seg_head:
+        per_pt += 1088 * 512 + 512 * 256 + 256 * 128 + 128 * n_out
+    else:
+        per_cloud += 1024 * 512 + 512 * 256 + 256 * n_out
+    return float(n_clouds) * (n_pts * per_pt + per_cloud)
+
+
+def learned_round(dev):
+    """The learned round: the nut nets loaded by the port's reader, one
+    round of the eval in learned perception through ``eval_round`` (K1 and
+    K2 held on its own gate and frame), the nets' stage times; then each
+    net's device time a call at full width on the round's own inputs, and
+    the seg net's card forward against the same module on the CPU.
+    Returns (launches, the round's record, the nets' record)."""
+    import copy
+
+    from catgrasp_tpu_torch.predict import predicter
+    from catgrasp_tpu_torch.predict.artifacts import load_predicters
+
+    t0 = time.perf_counter()
+    nets = load_predicters(os.path.join(REPO, "artifacts_tracked", "nut"), "nut", device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if sorted(nets) != ["grasp", "nocs", "seg"]:
+        fail(f"learned round: loaded the roles {sorted(nets)}, not grasp, nocs and seg")
+    print(f"learned round: loaded {sorted(nets)} from artifacts_tracked/nut in {load_s:.2f} s "
+          f"(seg voxel {nets['seg'].model.voxel_size} m, grid {nets['seg'].model.grid_dims}, "
+          f"{nets['seg'].n_pts} points; NUNOCS {nets['nocs'].n_pts} points x 3 x "
+          f"{nets['nocs'].n_bins} bins; grasp {nets['grasp'].n_pts} points, batches of "
+          f"{nets['grasp'].batch})", flush=True)
+    inputs, calls = {}, {r: 0 for r in nets}
+
+    def keep(role):
+        def hook(module, args):
+            inputs[role] = args
+            calls[role] += 1
+        return hook
+
+    hooks = [nets[r].model.register_forward_pre_hook(keep(r)) for r in nets]
+    post = {"meanshift": predicter.mean_shift, "ransac": predicter.estimate_9d_transform}
+
+    def recording(name):
+        def call(*args, **kw):
+            inputs[name] = (args, kw)
+            return post[name](*args, **kw)
+        return call
+
+    predicter.mean_shift, predicter.estimate_9d_transform = (recording(k) for k in post)
+    try:
+        launches, out = eval_round(dev, "learned round", "nut", 8, 2, oracle=False, predicters=nets)
+    finally:
+        for h in hooks:
+            h.remove()
+        predicter.mean_shift, predicter.estimate_9d_transform = post.values()
+    missing = [k for k in NET_STAGES if not out["stage_s"].get(k, 0.0) > 0]
+    if missing or not all(calls.values()):
+        fail(f"learned round: the nets did not all run (net calls {calls}, no time in {missing})")
+    print(f"learned round: net calls {json.dumps(calls)}", flush=True)
+
+    rec = {"load_s": load_s, "calls": calls}
+    with torch.inference_mode():
+        seg = nets["seg"].model
+        xyz, nrm, origin = inputs["seg"]
+        seg_ms = cuda_ms(lambda: seg(xyz, nrm, origin), 10)
+        nocs_in = inputs["nocs"][0]
+        nocs_ms = cuda_ms(lambda: nets["nocs"].model(nocs_in), 10)
+        g_in = inputs["grasp"][0]  # the round's last batch (at most 128 candidates)
+        full = g_in.repeat((-(-nets["grasp"].batch // len(g_in)), 1, 1))[:nets["grasp"].batch]
+        grasp_round_ms = cuda_ms(lambda: nets["grasp"].model(g_in), 5)
+        grasp_ms = cuda_ms(lambda: nets["grasp"].model(full), 5)
+        # the post-processing on the round's own inputs: the last MeanShift
+        # (seeds x points) and the last RANSAC fit (1,000 hypotheses)
+        for name, what in (("meanshift", "MeanShift of the shifted points"),
+                           ("ransac", "RANSAC 9D fit, 1,000 hypotheses")):
+            args, kw = inputs[name]
+            rec[name] = {"ms": cuda_ms(lambda: post[name](*args, **kw), 10),
+                         "shapes": f"{what}, {len(args[0])} points"}
+            print(f"{name}: {rec[name]['ms']:.3f} ms a call ({rec[name]['shapes']})", flush=True)
+        for name, ms, macs, peak, shape in (
+                ("seg", seg_ms, segnet_macs(seg.grid_dims, len(xyz)), BF16_OPS_PER_S,
+                 f"{len(xyz)} points, grid {'x'.join(map(str, seg.grid_dims))}, bf16 convs"),
+                ("nocs", nocs_ms, pointnet_macs(1, nocs_in.shape[1], True, 300), F32_OPS_PER_S,
+                 f"1 x {nocs_in.shape[1]} points, f32"),
+                ("grasp", grasp_ms, pointnet_macs(len(full), full.shape[1], False, 10),
+                 F32_OPS_PER_S, f"{len(full)} x {full.shape[1]} points, f32"),
+                ("grasp_round_batch", grasp_round_ms,
+                 pointnet_macs(len(g_in), g_in.shape[1], False, 10), F32_OPS_PER_S,
+                 f"{len(g_in)} x {g_in.shape[1]} points, f32")):
+            bound = 2 * macs / peak * 1e3
+            rec[name] = {"ms": ms, "gmacs": macs / 1e9, "bound_ms": bound, "shapes": shape}
+            print(f"net {name}: {ms:.3f} ms a call ({shape}), {macs / 1e9:.2f} G multiply-adds, "
+                  f"{2 * macs / ms / 1e9:.1f} TFLOP/s, bound {bound:.4f} ms at the "
+                  f"{'bf16' if peak == BF16_OPS_PER_S else 'f32'} peak", flush=True)
+        # the card's bf16 forward against the same module on the CPU
+        og, bg = seg(xyz, nrm, origin)
+        oc, bc = copy.deepcopy(seg).cpu()(xyz.cpu(), nrm.cpu(), origin.cpu())
+    d = (og.cpu() - oc).abs().flatten()
+    d_max, d_99 = float(d.max()), float(torch.quantile(d, 0.99))
+    signs = float(((bg.cpu() > 0) == (bc > 0)).float().mean())
+    print(f"seg net, card against CPU on the learned round's cloud ({len(xyz)} points): offsets "
+          f"max {d_max:.2e} m, 99th percentile {d_99:.2e} m (tolerance 2e-3, 5e-4); objectness "
+          f"signs agree on {signs:.6f} (tolerance >= 0.995)", flush=True)
+    if not (torch.isfinite(og).all() and torch.isfinite(bg).all()):
+        fail("learned round: the seg net's card output is not finite")
+    if d_max > 2e-3 or d_99 > 5e-4 or signs < 0.995:
+        fail("learned round: the seg net on the card disagrees with its CPU forward")
+    rec["seg_vs_cpu"] = {"max_abs_err": d_max, "p99_abs_err": d_99, "sign_agree": signs}
+    return launches, out, rec
+
+
 def no_host_waits(label: str, fn) -> None:
     """Call ``fn`` once to warm it up, then again under
     ``torch.cuda.set_sync_debug_mode("warn")``: fail if any operation in it
@@ -1383,7 +1529,7 @@ def main() -> None:
                    lambda: engine.rollout(state, params, scene.lib, scene.env_bin, 20),
                    times["settle_s"] * 20 / 500)
     device_profile("one attempt: render, occupancy, sample + filter",
-                   lambda: rgs.oracle_attempt(scene, state, params,
+                   lambda: rgs.attempt_front(scene, state, params,
                                               np.random.default_rng(0),
                                               torch.Generator(device=dev).manual_seed(0)),
                    times["render_s"] + times["occupancy_s"] + times["sample_filter_s"])
@@ -1430,6 +1576,7 @@ def main() -> None:
     grid_launches, grid = grid_round(dev)
     k3 = check_rollout(dev, logs["fused_rollout"])
     bench_launches, at_bench = bench_path(dev)
+    learned_launches, learned, nets = learned_round(dev)
 
     from catgrasp_tpu_torch.ops import render_march
     k1_bound, k1_by = bound_of(k1["ops"], k1["bytes"])
@@ -1471,7 +1618,9 @@ def main() -> None:
          "launches_hnm_round": hnm_launches["box_hits"],
          "at_nocs_gate_hnm": nocs_gate_row("hnm round", "hnm", hnm["k1"]),
          "launches_floating_attempt": float_launches["box_hits"],
-         "launches_grid_round": grid_launches["box_hits"]},
+         "launches_grid_round": grid_launches["box_hits"],
+         "launches_learned_round": learned_launches["box_hits"],
+         "at_nocs_gate_learned": nocs_gate_row("learned round", "nut", learned["k1"])},
         {"name": "march_csg", "route": "cuda", "source": "catgrasp_tpu_torch/csrc/march_csg.cu",
          "replaces": "catgrasp_tpu/ops/render_march.py:224", "launches": launches["march_csg"],
          "launches_bench_path": bench_launches["march_csg"],
@@ -1495,7 +1644,10 @@ def main() -> None:
          "at_hnm_round": {k: hnm["k2"][k] for k in (
              "shapes", "seg_agree", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
          "launches_floating_attempt": float_launches["march_csg"],
-         "launches_grid_round": grid_launches["march_csg"]},
+         "launches_grid_round": grid_launches["march_csg"],
+         "launches_learned_round": learned_launches["march_csg"],
+         "at_learned_round": {k: learned["k2"][k] for k in (
+             "shapes", "seg_agree", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}},
         {"name": "rollout_fused", "route": "cuda",
          "source": "catgrasp_tpu_torch/csrc/fused_rollout.cu",
          "replaces": "catgrasp_tpu/ops/fused_rollout.py:531",
@@ -1506,6 +1658,7 @@ def main() -> None:
          "launches_hnm_round": hnm_launches["rollout_fused"],
          "launches_floating_attempt": float_launches["rollout_fused"],
          "launches_grid_round": grid_launches["rollout_fused"],
+         "launches_learned_round": learned_launches["rollout_fused"],
          "max_abs_err": k3["max_abs_err"], "within_tol_frac": k3["within_tol_frac"],
          "ms": k3["ms"], "wrapper_ms": k3["wrapper_ms"], "prepare_ms": k3["prepare_ms"],
          "timing": k3["timing"], "plain_ms": k3["plain_ms"], "engine_ms": k3["engine_ms"],
@@ -1513,6 +1666,7 @@ def main() -> None:
          "regimes_ms": k3["regimes_ms"], "footprint": k3["footprint"],
          "shapes": k3["shapes"]},
     ]
+    print(json.dumps({"nets": nets}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -58,14 +58,16 @@ N_CODEBOOK = 1024  # the canonical's best grasps the samplers start from
 PILE_KEY = {"nut": 7, "screw": 7, "hnm": 5}
 
 
-def _pile(cls):
+def _pile(cls, hw=(H, W), fx=FX):
     """A 3-object pile of ``cls`` plus its fixture in the eval's set-up (the
-    port's own), reset and stepped 60 times by JAX, then rendered by JAX."""
+    port's own), reset and stepped 60 times by JAX, then rendered by JAX at
+    ``hw`` with focal length ``fx``."""
+    H, W = hw
     can = dict(np.load(CANONICAL.format(cls)))
     cfg = dict(load_config("config_run.yml"), nocs_grasp_sampler_max_n_grasp=N_CODEBOOK)
     sc = rgs.setup_scene(cls, n_objects=3, cfg_run=cfg, render_hw=(H, W), canonical=can,
                          device="cpu")
-    sc.K = torch.tensor([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
+    sc.K = torch.tensor([[fx, 0, W / 2], [0, fx, H / 2], [0, 0, 1.0]])
     fit = jprim.instance_params(cls, "test", 0)
     meshes = [jprim.make_instance(cls, "test", i) for i in range(sc.n_inst)]
     meshes.append(jprim.place_fixture(cls, fit))
@@ -330,11 +332,24 @@ def test_one_round_smoke(tmp_path, monkeypatch):
 @pytest.mark.parametrize("mode", [pytest.param(dict(oracle=False), id="mode0"),
                                   pytest.param(dict(predicters={"grasp": None}), id="mode1"),
                                   pytest.param(dict(arm_dynamics=True), id="mode3")])
-def test_modes_not_ported_raise(mode):
-    """Learned perception and arm dynamics raise before any work, naming the
-    ``ROADMAP.md`` item that ports them."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        rgs.simulate_grasp_rounds("nut", n_rounds=1, device="cpu", verbose=False, **mode)
-    if "oracle" in mode:
-        with pytest.raises(NotImplementedError, match="Learned perception"):
-            rgs.main(["--artifacts", "artifacts_tracked/nut", "--device", "cpu"])
+def test_modes_not_ported_raise(mode, monkeypatch):
+    """Arm dynamics raise before any work, naming the ``ROADMAP.md`` item
+    that ports them.  Learned perception is ported: learned mode without a
+    NUNOCS predicter is refused with a ``ValueError`` before any work, and a
+    grasp predicter in oracle mode passes the mode check to the scene
+    set-up."""
+    def set_up(*a, **k):
+        raise LookupError("set-up reached")
+
+    monkeypatch.setattr(rgs, "setup_scene", set_up)
+    if "arm_dynamics" in mode:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            rgs.simulate_grasp_rounds("nut", n_rounds=1, device="cpu", verbose=False, **mode)
+    elif "oracle" in mode:
+        with pytest.raises(ValueError, match="NUNOCS predicter"):
+            rgs.simulate_grasp_rounds("nut", n_rounds=1, device="cpu", verbose=False, **mode)
+        with pytest.raises(LookupError, match="set-up reached"):
+            rgs.main(["--oracle", "0", "--artifacts", "artifacts_tracked/nut", "--device", "cpu"])
+    else:
+        with pytest.raises(LookupError, match="set-up reached"):
+            rgs.simulate_grasp_rounds("nut", n_rounds=1, device="cpu", verbose=False, **mode)

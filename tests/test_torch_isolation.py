@@ -1,4 +1,5 @@
-"""The port stands alone: no JAX, no flax, nothing of ``catgrasp_tpu``;
+"""The port stands alone: no JAX, no flax, no msgpack, nothing of
+``catgrasp_tpu``;
 GPU by default, never a quiet fall back to the CPU.  This file imports no
 JAX either, so it also runs on a GPU machine without it
 (``python -m pytest --noconftest tests/test_torch_isolation.py``)."""
@@ -14,6 +15,7 @@ from catgrasp_tpu_torch import bench, convert
 from catgrasp_tpu_torch.geom import csg, primitives, sdf, sdf_io
 from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
 from catgrasp_tpu_torch.pipelines import run_grasp_simulation as rgs
+from catgrasp_tpu_torch.predict.artifacts import load_predicters
 from catgrasp_tpu_torch.sim import engine, env_pile
 from catgrasp_tpu_torch.sim.types import SceneState, build_shape_lib, stack_scenes
 
@@ -26,18 +28,22 @@ import catgrasp_tpu_torch
 for m in pkgutil.walk_packages(catgrasp_tpu_torch.__path__, "catgrasp_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
-names = {"jax", "flax", "catgrasp_tpu"}
+names = {"jax", "flax", "msgpack", "catgrasp_tpu"}
 bad = sorted(n for n in sys.modules
              if n in names or any(n.startswith(p + ".") for p in names))
 print("\\n".join(bad))
 print("port", " ".join(sorted(n for n in sys.modules if n.startswith("catgrasp_tpu_torch"))))
 print("modules", len([n for n in sys.modules if n.startswith("catgrasp_tpu_torch")]))
 """
-# modules the probe must reach, the baked-SDF geometry and the floating
-# baseline's place among them
+# modules the probe must reach, the baked-SDF geometry, the floating
+# baseline's place and learned perception among them
 NEEDED = ("catgrasp_tpu_torch.geom.sdf", "catgrasp_tpu_torch.geom.sdf_io",
           "catgrasp_tpu_torch.geom.mesh", "catgrasp_tpu_torch.sim.env_semantic",
-          "catgrasp_tpu_torch.render.raymarch", "catgrasp_tpu_torch.pipelines.run_grasp_simulation")
+          "catgrasp_tpu_torch.render.raymarch", "catgrasp_tpu_torch.pipelines.run_grasp_simulation",
+          "catgrasp_tpu_torch.nn.pointnet", "catgrasp_tpu_torch.nn.voxelnet",
+          "catgrasp_tpu_torch.nn.cluster", "catgrasp_tpu_torch.predict.ckpt",
+          "catgrasp_tpu_torch.predict.ransac", "catgrasp_tpu_torch.predict.predicter",
+          "catgrasp_tpu_torch.predict.artifacts", "catgrasp_tpu_torch.data.augment")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -79,6 +85,9 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         lambda: sdf.bake_sdf(mesh.vertices, mesh.faces, dims=8),
         lambda: build_shape_lib([mesh], n_surf=8, bake_grids=True),
         lambda: sdf_io.grid_from_file(os.path.join(REPO, "assets", "nut_demo.obj")),
+        lambda: load_predicters(os.path.join(REPO, "artifacts_tracked", "nut"), "nut"),
+        lambda: rgs.main(["--class_name", "nut", "--n_rounds", "1", "--oracle", "0",
+                          "--artifacts", os.path.join(REPO, "artifacts_tracked", "nut")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -3,7 +3,7 @@
 
 The JAX side mirrors ``simulate_grasp_rounds`` lines 484-604 with the JAX
 package's functions; the port side calls
-``pipelines.run_grasp_simulation.oracle_attempt``: with no canonical (the
+``pipelines.run_grasp_simulation.attempt_front``: with no canonical (the
 cone sampler alone), and with a small canonical codebook (per segment the
 oracle NUNOCS pose and the NOCS-transfer sampler beside the cone sampler,
 found on the union of their candidates).  Both draw
@@ -274,7 +274,7 @@ def _check_slice(settled):
                                      queue, _stable_normals(*settled))
     assert j_tried and j_tried[-1]["valid"].any(), "the JAX side found no candidates"
     sc.cone = _GivenIds(queue, gripper=sc.gripper, **SAMPLER)
-    res = rgs.oracle_attempt(sc, port_state(state), port_params(params),
+    res = rgs.attempt_front(sc, port_state(state), port_params(params),
                              np.random.default_rng(0), generator=None)
     seg_j, seg_p = np.asarray(j_out["seg"]), t2n(res.out["seg"])
     assert (seg_j == seg_p).mean() > 0.995
@@ -323,7 +323,7 @@ def _check_slice_with_canonical(settled, cone):
                                       max_n_grasp=n_codebook)
     cone_sampler = (_GivenIds if cone == "on" else _NoCone)(queue, gripper=sc.gripper, **SAMPLER)
     scp = dataclasses.replace(sc, cone=cone_sampler, nocs=p_nocs)
-    res = rgs.oracle_attempt(scp, port_state(state), port_params(params),
+    res = rgs.attempt_front(scp, port_state(state), port_params(params),
                              np.random.default_rng(0), generator=None)
     assert [t["seg"] for t in res.tried] == [t["seg"] for t in j_tried]
     for tp, tj in zip(res.tried, j_tried):
@@ -352,7 +352,7 @@ def test_port_slice_runs_end_to_end():
     rng = np.random.default_rng(0)
     state, params = rgs.make_round_pile(sc, rng, g, settle_steps=40)
     assert bool(state.active[-1])  # the fixture stays active
-    res = rgs.oracle_attempt(sc, state, params, rng, g)
+    res = rgs.attempt_front(sc, state, params, rng, g)
     assert res.out["depth"].shape == (H, W) and torch.isfinite(res.out["xyz"]).all()
     assert res.tried, "no segment was large enough to sample"
     for t in (t["cone"] for t in res.tried):
