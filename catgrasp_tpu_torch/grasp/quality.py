@@ -9,9 +9,15 @@ wrenches, taken as the minimum of the hull's support function over a fixed
 table of 256 directions in wrench space.
 
 The table is data, not randomness: the JAX package draws it as
-``jax.random.normal(PRNGKey(0), (256, 6))`` on every call, a stream torch
-cannot reproduce, so the port carries that draw as ``quality_dirs.npy``
-(float32, before normalisation) beside this module.
+``jax.random.normal(PRNGKey(0), (n_dirs, 6))`` on every call (256 for
+``parallel_jaw_quality``, 512 by default), a stream torch cannot reproduce,
+so the port carries the 512-row draw as ``quality_dirs.npy`` (float32,
+before normalisation) beside this module; the 256-row draw is its first 256
+rows.
+
+Also here: the batched metric ``epsilon_quality_batch``, the two-contact
+antipodality tests (``antipodal_score``, ``force_closure``) and the
+grasp-matrix isotropy index (``grasp_isotropy``).
 """
 from __future__ import annotations
 
@@ -27,9 +33,13 @@ DIRS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "quality_di
 _GRASPS_PER_CHUNK = 16  # bounds the (grasps, directions, wrenches) support tensor
 
 
-def wrench_directions(device) -> torch.Tensor:
-    """The (256, 6) unit directions in wrench space the metric is taken on."""
-    u = torch.from_numpy(np.load(DIRS_FILE)).to(device)
+def wrench_directions(device, n_dirs: int = 256) -> torch.Tensor:
+    """The (n_dirs, 6) unit directions in wrench space the metric is taken
+    on, n_dirs <= 512."""
+    u = torch.from_numpy(np.load(DIRS_FILE))
+    if not 0 < n_dirs <= u.shape[0]:
+        raise ValueError(f"n_dirs must lie in 1..{u.shape[0]}, got {n_dirs}")
+    u = u[:n_dirs].to(device)
     return u / (tf.norm(u, keepdim=True) + 1e-12)
 
 
@@ -72,20 +82,53 @@ def contact_wrenches(points: torch.Tensor, normals: torch.Tensor, mu: float,
 
 
 def epsilon_quality(points: torch.Tensor, normals: torch.Tensor, mask: torch.Tensor,
-                    mu: float = 0.5, n_edges: int = 8, soft_fingers: bool = True) -> torch.Tensor:
+                    mu: float = 0.5, n_edges: int = 8, n_dirs: int = 512,
+                    soft_fingers: bool = True) -> torch.Tensor:
     """Ferrari-Canny L1 lower bound of contact sets (..., C, 3) with validity
-    masks (..., C): Q = max(0, min_u max_j w_j.u) over the direction table,
-    0 without force closure (fewer than 2 contacts)."""
+    masks (..., C): Q = max(0, min_u max_j w_j.u) over the first ``n_dirs``
+    directions of the table, 0 without force closure (fewer than 2
+    contacts)."""
     w = contact_wrenches(points, normals, mu, n_edges, soft_fingers)
     wmask = mask.repeat_interleave(n_edges, dim=-1)
     if soft_fingers:
         wmask = torch.cat([wmask, mask, mask], dim=-1)
-    dirs = wrench_directions(points.device)  # (U, 6)
+    dirs = wrench_directions(points.device, n_dirs)  # (U, 6)
     s = torch.einsum("ud,...wd->...uw", dirs, w)
     s = torch.where(wmask[..., None, :], s, float("-inf"))
     q = torch.amin(torch.amax(s, dim=-1), dim=-1)
     q = torch.where(torch.sum(mask, dim=-1) >= 2, q, -1.0)
     return torch.clamp(q, min=0.0)
+
+
+# ``epsilon_quality`` broadcasts over leading grasp axes: (G, C, 3) -> (G,)
+epsilon_quality_batch = epsilon_quality
+
+
+def antipodal_score(p1: torch.Tensor, n1: torch.Tensor, p2: torch.Tensor,
+                    n2: torch.Tensor) -> torch.Tensor:
+    """Cosine of the worse normal-vs-closing-line angle of contact pairs
+    (..., 3): 1 = perfectly antipodal; force closure iff the score is at
+    least cos(atan(mu)) (Nguyen's condition)."""
+    axis = p2 - p1
+    axis = axis / (tf.norm(axis, keepdim=True) + 1e-12)
+    c1 = torch.sum(n1 * axis, dim=-1)  # inward n1 points along +axis
+    c2 = torch.sum(-n2 * axis, dim=-1)  # inward n2 points along -axis
+    return torch.minimum(c1, c2)
+
+
+def force_closure(p1, n1, p2, n2, mu: float = 0.5) -> torch.Tensor:
+    """Boolean two-contact antipodality force-closure test (Nguyen)."""
+    return antipodal_score(p1, n1, p2, n2) >= math.cos(math.atan(mu))
+
+
+def grasp_isotropy(points: torch.Tensor, normals: torch.Tensor, mask: torch.Tensor,
+                   mu: float = 0.5, n_edges: int = 8) -> torch.Tensor:
+    """Grasp-matrix isotropy index sigma_min / sigma_max of the cone-edge
+    wrench matrix of contact sets (..., C, 3) with masks (..., C)."""
+    w = contact_wrenches(points, normals, mu, n_edges, soft_fingers=False)
+    wmask = mask.repeat_interleave(n_edges, dim=-1)
+    s = torch.linalg.svdvals(torch.where(wmask[..., None], w, 0.0))
+    return torch.where(s[..., 0] > 1e-9, s[..., -1] / s[..., 0], 0.0)
 
 
 def _parallel_jaw_quality(cloud, grasps, spec, mu, surface_tol):
@@ -106,7 +149,7 @@ def _parallel_jaw_quality(cloud, grasps, spec, mu, surface_tol):
         / torch.clamp(n_contacts, min=1)[:, None]
     n_in = torch.where(m_pos[..., None], torch.tensor([0.0, -1.0, 0.0], device=dev),
                        torch.tensor([0.0, 1.0, 0.0], device=dev))
-    q = epsilon_quality(pg - c[:, None, :], n_in, contacts, mu=mu)
+    q = epsilon_quality(pg - c[:, None, :], n_in, contacts, mu=mu, n_dirs=256)
     ok = m_pos.any(dim=-1) & m_neg.any(dim=-1) & (n_contacts >= 4)
     # engagement: how deep the contact patch sits toward the palm (palm at
     # x=0, tips at finger_len); tip-held objects shake loose

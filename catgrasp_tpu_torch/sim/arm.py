@@ -32,17 +32,19 @@ ARM_RADII = np.array([0.09, 0.07, 0.06, 0.05], dtype=np.float32)
 
 
 def merge_envs(*envs: engine.StaticEnv) -> engine.StaticEnv:
-    """Concatenate StaticEnv collider sets."""
+    """Concatenate StaticEnv collider sets along the collider axis; leading
+    scene axes, where a set has them, broadcast."""
+    lead = torch.broadcast_shapes(*(e.friction.shape[:-1] for e in envs))
+
+    def cat(name, vector):
+        parts = [getattr(e, name) for e in envs]
+        dim = -2 if vector else -1
+        return torch.cat([x.expand(*lead, *x.shape[dim:]) for x in parts], dim=dim)
+
     return engine.StaticEnv(
-        center=torch.cat([e.center for e in envs]),
-        half=torch.cat([e.half for e in envs]),
-        quat=torch.cat([e.quat for e in envs]),
-        vel=torch.cat([e.vel for e in envs]),
-        friction=torch.cat([e.friction for e in envs]),
-        enabled=torch.cat([e.enabled for e in envs]),
-        imp_budget=torch.cat([e.imp_budget for e in envs]),
-        grip=torch.cat([e.grip for e in envs]),
-    )
+        center=cat("center", True), half=cat("half", True), quat=cat("quat", True),
+        vel=cat("vel", True), friction=cat("friction", False), enabled=cat("enabled", False),
+        imp_budget=cat("imp_budget", False), grip=cat("grip", False))
 
 
 def _rot_align_x(d: torch.Tensor) -> torch.Tensor:

@@ -2,9 +2,12 @@
 
 ``step(state, params, lib, env) -> state`` with static shapes.  The state
 and parameters are one scene, (N, ...), or a batch of scenes with leading
-axes, (B, N, ...): every function here broadcasts over them, the library and
-the env boxes are shared, and ``rollout_batch`` is the counterpart of the JAX
-package's ``vmap(engine.rollout)``.  Per scene:
+axes, (B, N, ...): every function here broadcasts over them, and
+``rollout_batch`` is the counterpart of the JAX package's
+``vmap(engine.rollout)``.  The library is shared.  The env boxes are shared
+too, (M, ...), or carry leading axes of their own that broadcast against
+the state's, (B, M, ...): a batch of grasp rollouts gives each scene its own
+gripper, as ``vmap`` over ``grasp_rollout`` does in JAX.  Per scene:
 
 * **Narrowphase = SDF queries.** Every body carries P surface sample points;
   a contact candidate is (point of body i, collider m).  Colliders are the
@@ -49,7 +52,9 @@ STATIC_MASS = 1e8
 @dataclass
 class StaticEnv:
     """Analytic box colliders (bin, floor, gripper fingers).  Kinematic:
-    infinite mass, optional linear velocity (for moving fingers)."""
+    infinite mass, optional linear velocity (for moving fingers).  Every
+    field may carry leading axes, (..., M, ...), that broadcast against the
+    scene state's."""
 
     center: torch.Tensor  # (M, 3)
     half: torch.Tensor  # (M, 3)
@@ -171,12 +176,12 @@ _BODY_SDF = {"csg": _sdf_vs_bodies, "grid": _sdf_vs_bodies_grid}
 
 def _sdf_vs_env(w_pts, env: StaticEnv):
     """φ and world normal of every point vs every env box: (...,N,P,M), (...,N,P,M,3)."""
-    Rm = tf.quat_to_matrix(env.quat)
-    rel = w_pts[..., None, :] - env.center
-    loc = torch.einsum("mji,...npmj->...npmi", Rm, rel)
-    d, n_loc = box_sdf_and_normal(loc, env.half)
-    n_world = torch.einsum("mij,...npmj->...npmi", Rm, n_loc)
-    d = torch.where(env.enabled, d, 1e9)
+    Rm = tf.quat_to_matrix(env.quat)  # (...,M,3,3)
+    rel = w_pts[..., None, :] - env.center[..., None, None, :, :]
+    loc = torch.einsum("...mji,...npmj->...npmi", Rm, rel)
+    d, n_loc = box_sdf_and_normal(loc, env.half[..., None, None, :, :])
+    n_world = torch.einsum("...mij,...npmj->...npmi", Rm, n_loc)
+    d = torch.where(env.enabled[..., None, None, :], d, 1e9)
     return d, n_world
 
 
@@ -238,12 +243,16 @@ def _solve_contacts(state: SceneState, params: SceneParams, lib: ShapeLib,
     denom = torch.clamp(cnt_i + cnt_j, min=1).to(torch.float32)
 
     cnt_m = torch.sum(in_contact, dim=(-3, -2)).to(torch.float32)
-    grip_j = torch.cat([torch.zeros(N, dtype=torch.bool, device=dev), env.grip])
-    budget_j = torch.cat([torch.full((N,), float("inf"), device=dev), env.imp_budget])
+    env_lead = env.grip.shape[:-1]
+    grip_j = torch.cat([torch.zeros((*env_lead, N), dtype=torch.bool, device=dev), env.grip],
+                       dim=-1)
+    budget_j = torch.cat([torch.full((*env_lead, N), float("inf"), device=dev),
+                          env.imp_budget], dim=-1)
     jt_grip_cap = torch.where(
         grip_j, (budget_j / n_iter) / torch.clamp(cnt_m, min=1.0), 0.0)
 
-    env_vel = env.vel  # (M_env,3) velocity of each env collider
+    # velocity of each env collider, against every (body, point)
+    env_vel = env.vel[..., None, None, :, :].expand(*batch, N, P, M_env, 3)
     scale = 1.0 / denom  # Jacobi averaging per body
 
     def deltas(impulse):
@@ -263,7 +272,7 @@ def _solve_contacts(state: SceneState, params: SceneParams, lib: ShapeLib,
         v_pt_i = linvel[..., :, None, None, :] + tf.cross(angvel[..., :, None, None, :], r_i)
         v_pt_j_b = linvel[..., None, None, :, :] \
             + tf.cross(angvel[..., None, None, :, :], r_j_b)
-        v_pt_j = torch.cat([v_pt_j_b, env_vel.expand(*batch, N, P, M_env, 3)], dim=-2)
+        v_pt_j = torch.cat([v_pt_j_b, env_vel], dim=-2)
         v_rel = v_pt_i - v_pt_j
         v_n = torch.sum(v_rel * nrm, dim=-1)
 

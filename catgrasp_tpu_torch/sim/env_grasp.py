@@ -1,15 +1,18 @@
-"""Parallel-jaw gripper in the scene (``catgrasp_tpu/sim/env_grasp.py``).
+"""Parallel-jaw gripper in the scene and grasp scoring by physics
+(``catgrasp_tpu/sim/env_grasp.py``).
 
 The gripper lives in the GRASP frame: +x approach, ±y closing.  Ported: the
 geometry the grasp filter needs, the gripper as kinematic colliders, the
-per-finger force-limited closing law the arm executor steps, and the
-contact and collision tests of the eval's scoring.  The grasp rollout,
-``verify_grasp`` and ``perturbation_scores`` belong to grasp-DB generation
-and are not ported.
+per-finger force-limited closing law the executors step, the contact and
+collision tests of the eval's scoring, and the grasp DB's scorer: the
+close-and-shake rollout (``grasp_rollout``, ``verify_grasp``) and the
+perturbation-robustness score (``perturbation_scores``).
 
 Every quantity of the closing law stays a tensor (``torch.where`` in place
 of branches), so a caller that steps it once per engine step never waits
-for the device; only the phase (closing or not) is a Python bool.
+for the device; only the phase (closing or not) is a Python bool.  Its
+inputs may carry leading axes: a rollout batch steps G x trials scenes, each
+with its own gripper, through one engine step, where JAX ``vmap``s them.
 """
 from __future__ import annotations
 
@@ -20,6 +23,12 @@ import torch
 from ..core import transforms as tf
 from ..device import constant
 from . import engine
+from .types import SceneParams, SceneState, ShapeLib
+
+N_CLOSE_STEPS = 50
+N_SHAKE_STEPS = 50
+SUCCESS_DISP = 0.02  # meters the object may move during the shake
+SHAKE_GRAVITY = -10.0
 
 
 @dataclass(frozen=True)
@@ -84,11 +93,20 @@ def finger_boxes(width: torch.Tensor, spec: GripperSpec, center=0.0):
     return centers, halves.expand(centers.shape)
 
 
+def _per_scene(x):
+    """A per-scene quantity, a tensor (...) or a number, against each scene's
+    vectors or boxes: (..., 1)."""
+    return x[..., None] if isinstance(x, torch.Tensor) else x
+
+
 def gripper_env(T_grasp: torch.Tensor, width: torch.Tensor, center, vel_pos, vel_neg,
                 spec: GripperSpec, friction: float = 0.9, dt: float = engine.DT,
                 grip=False) -> engine.StaticEnv:
     """Gripper as 3 kinematic world-frame boxes (finger+, finger-, palm).
 
+    ``T_grasp`` is (..., 4, 4) and ``width``, ``center``, ``vel_pos``,
+    ``vel_neg`` and ``grip`` broadcast against its leading axes, which the
+    env then carries: one gripper a scene of a rollout batch.
     ``vel_pos``/``vel_neg`` are the INWARD speeds of the +y / -y fingers
     (positive = closing); the fingers are independent position-controlled
     motors.  Each collider may deliver at most ``max_force * dt`` of normal
@@ -96,22 +114,24 @@ def gripper_env(T_grasp: torch.Tensor, width: torch.Tensor, center, vel_pos, vel
     friction, the palm never grips."""
     dev = T_grasp.device
     centers_g, halves = finger_boxes(width, spec, center)
-    R = T_grasp[:3, :3]
-    centers_w = centers_g @ R.T + T_grasp[:3, 3]
-    quats = tf.matrix_to_quat(R).expand(3, 4)
+    R = T_grasp[..., :3, :3]
+    centers_w = centers_g @ R.transpose(-1, -2) + T_grasp[..., None, :3, 3]
+    lead = centers_w.shape[:-2]
+    quats = tf.matrix_to_quat(R)[..., None, :].expand(*lead, 3, 4)
     # closing velocity: finger+ moves -y_grasp, finger- moves +y_grasp
-    ydir = R[:, 1]
-    vel = torch.stack([-ydir * vel_pos, ydir * vel_neg, torch.zeros(3, device=dev)])
-    grip = constant((True, True, False), torch.bool, dev) & grip
+    ydir = R[..., :, 1]
+    vel = torch.stack([-ydir * _per_scene(vel_pos), ydir * _per_scene(vel_neg),
+                       torch.zeros_like(ydir)], dim=-2)
+    grip = constant((True, True, False), torch.bool, dev) & _per_scene(grip)
     return engine.StaticEnv(
         center=centers_w,
-        half=halves,
+        half=halves.expand(centers_w.shape),
         quat=quats,
         vel=vel,
-        friction=torch.full((3,), friction, device=dev),
-        enabled=torch.ones((3,), dtype=torch.bool, device=dev),
-        imp_budget=torch.full((3,), spec.max_force * dt, device=dev),
-        grip=grip,
+        friction=torch.full((*lead, 3), friction, device=dev),
+        enabled=torch.ones((*lead, 3), dtype=torch.bool, device=dev),
+        imp_budget=torch.full((*lead, 3), spec.max_force * dt, device=dev),
+        grip=grip.expand(*lead, 3),
     )
 
 
@@ -120,14 +140,14 @@ def _object_pen_per_finger(obj_pts_grasp: torch.Tensor, width, spec: GripperSpec
     """Per-finger SIGNED penetration along the closing axis of the extremal
     in-channel object point past each finger's inner face (negative =
     clearance): ``(pen_pos, pen_neg)``, -1e3 each when no point is in the
-    channel."""
+    channel.  Points are (..., P, 3), ``width`` and ``center`` (...)."""
     in_ch = closing_channel_mask(obj_pts_grasp, spec)
-    y = obj_pts_grasp[:, 1]
-    f_pos = center + width / 2
-    f_neg = center - width / 2
-    pen_p = torch.amax(torch.where(in_ch, y - f_pos, float("-inf")))
-    pen_n = torch.amax(torch.where(in_ch, f_neg - y, float("-inf")))
-    any_ch = torch.any(in_ch)
+    y = obj_pts_grasp[..., 1]
+    f_pos = torch.as_tensor(center + width / 2)[..., None]
+    f_neg = torch.as_tensor(center - width / 2)[..., None]
+    pen_p = torch.amax(torch.where(in_ch, y - f_pos, float("-inf")), dim=-1)
+    pen_n = torch.amax(torch.where(in_ch, f_neg - y, float("-inf")), dim=-1)
+    any_ch = torch.any(in_ch, dim=-1)
     return torch.where(any_ch, pen_p, -1e3), torch.where(any_ch, pen_n, -1e3)
 
 
@@ -144,10 +164,10 @@ SQUEEZE_SPEED = 0.05
 PRESS_ACCEL = 100.0
 
 
-def closing_touched_init(device=None) -> torch.Tensor:
-    """Initial per-finger first-contact latch: (2,) bool, [touched_pos,
-    touched_neg]."""
-    return torch.zeros((2,), dtype=torch.bool, device=device)
+def closing_touched_init(device=None, shape=()) -> torch.Tensor:
+    """Initial per-finger first-contact latch: (*shape, 2) bool,
+    [touched_pos, touched_neg]."""
+    return torch.zeros((*shape, 2), dtype=torch.bool, device=device)
 
 
 def closing_step(obj_pts_grasp: torch.Tensor, width: torch.Tensor, center: torch.Tensor,
@@ -162,16 +182,17 @@ def closing_step(obj_pts_grasp: torch.Tensor, width: torch.Tensor, center: torch
     drive own penetration to ``max_squeeze_pen`` at ``SQUEEZE_SPEED``).  The
     width is floored at the in-channel object extent less the two-sided
     allowance.  The latch updates every tick; the fingers move only while
-    ``closing``.
+    ``closing``.  Points are (..., P, 3); ``width``, ``center`` (...) and
+    ``touched`` (..., 2) carry the same leading axes.
 
     Returns ``(new_width, new_center, new_touched, v_pos, v_neg)``, v_* the
     fingers' inward speeds for :func:`gripper_env`."""
     pen_p, pen_n = _object_pen_per_finger(obj_pts_grasp, width, spec, center)
-    touched = touched | torch.stack([pen_p > CONTACT_TOL, pen_n > CONTACT_TOL])
+    touched = touched | torch.stack([pen_p > CONTACT_TOL, pen_n > CONTACT_TOL], dim=-1)
     if not closing:
         zero = torch.zeros_like(width)
         return width, center, touched, zero, zero
-    both = touched[0] & touched[1]
+    both = touched[..., 0] & touched[..., 1]
     half_step = spec.close_speed * dt / 2
     creep = LAND_SPEED * dt
     sq_step = SQUEEZE_SPEED * dt
@@ -186,15 +207,15 @@ def closing_step(obj_pts_grasp: torch.Tensor, width: torch.Tensor, center: torch
         wall = -torch.clamp(torch.clamp(-err, min=0.0), max=sq_step / 2)
         return torch.where(~own_touched, free, torch.where(both, squeeze, wall))
 
-    df_p = advance(touched[0], pen_p)
-    df_n = advance(touched[1], pen_n)
+    df_p = advance(touched[..., 0], pen_p)
+    df_n = advance(touched[..., 1], pen_n)
     # width floor: object channel extent minus the two-sided allowance (0
     # when nothing is in the channel)
     in_ch = closing_channel_mask(obj_pts_grasp, spec)
-    y = obj_pts_grasp[:, 1]
-    ymax = torch.amax(torch.where(in_ch, y, float("-inf")))
-    ymin = torch.amin(torch.where(in_ch, y, float("inf")))
-    extent = torch.where(torch.any(in_ch), ymax - ymin, 0.0)
+    y = obj_pts_grasp[..., 1]
+    ymax = torch.amax(torch.where(in_ch, y, float("-inf")), dim=-1)
+    ymin = torch.amin(torch.where(in_ch, y, float("inf")), dim=-1)
+    extent = torch.where(torch.any(in_ch, dim=-1), ymax - ymin, 0.0)
     min_width = torch.clamp(extent - 2.0 * spec.max_squeeze_pen, min=0.0)
     # shrink the ADVANCES (retreats untouched) so that width_new >= min_width
     cap_total = torch.clamp(width - min_width, min=0.0)
@@ -209,13 +230,133 @@ def closing_step(obj_pts_grasp: torch.Tensor, width: torch.Tensor, center: torch
 
 
 def open_gripper_collision(obj_pts_grasp: torch.Tensor, spec: GripperSpec) -> torch.Tensor:
-    """Open-gripper collision test: any object point inside any gripper box
-    at full opening."""
+    """Open-gripper collision test: any object point (..., C, 3) inside any
+    gripper box at full opening; (...) bool."""
     dev = obj_pts_grasp.device
     centers, halves = finger_boxes(torch.tensor(spec.max_width, device=dev), spec)
-    rel = obj_pts_grasp[:, None, :] - centers[None]
-    d, _ = engine.box_sdf_and_normal(rel, halves[None])
-    return torch.any(d < 0.0)
+    rel = obj_pts_grasp[..., :, None, :] - centers
+    d, _ = engine.box_sdf_and_normal(rel, halves)
+    return torch.any(d < 0.0, dim=(-2, -1))
+
+
+def grasp_rollout_start(lib: ShapeLib, shape_id, scale, grasp_in_ob: torch.Tensor,
+                        spec: GripperSpec = GripperSpec(), friction: float = 0.7):
+    """The scenes of a batch of grasp rollouts before the first step: the
+    object at identity, one scene a pose of ``grasp_in_ob`` (..., 4, 4), the
+    gripper open.  Returns ``(params, carry, collided)``: the scene batch's
+    parameters, ``(state, width, center, touched)`` and the open-gripper
+    collision flag (...)."""
+    dev = grasp_in_ob.device
+    lead = grasp_in_ob.shape[:-2]
+    one = SceneParams.create(lib, torch.as_tensor(shape_id, device=dev).reshape(1),
+                             torch.as_tensor(scale, device=dev).reshape(1), friction=friction)
+    params = SceneParams(**{k: v.expand(*lead, *v.shape) for k, v in vars(one).items()})
+    quat = torch.zeros((*lead, 1, 4), device=dev)
+    quat[..., 0] = 1.0
+    state = SceneState(pos=torch.zeros((*lead, 1, 3), device=dev), quat=quat,
+                       linvel=torch.zeros((*lead, 1, 3), device=dev),
+                       angvel=torch.zeros((*lead, 1, 3), device=dev),
+                       active=torch.ones((*lead, 1), dtype=torch.bool, device=dev))
+    pts0 = tf.transform_points(tf.pose_inverse(grasp_in_ob), _object_points(lib, params))
+    collided = open_gripper_collision(pts0, spec)
+    width = torch.full(lead, spec.max_width, device=dev)
+    carry = (state, width, torch.zeros(lead, device=dev), closing_touched_init(dev, lead))
+    return params, carry, collided
+
+
+def _object_points(lib: ShapeLib, params: SceneParams) -> torch.Tensor:
+    """Each scene's object surface sample points in the object's frame:
+    (..., P, 3)."""
+    return lib.surf_pts[params.shape_id[..., 0]] * params.scale[..., 0, None, None]
+
+
+def grasp_rollout_steps(lib: ShapeLib, params: SceneParams, grasp_in_ob: torch.Tensor, carry,
+                        steps: range, n_close: int, spec: GripperSpec = GripperSpec(),
+                        narrowphase: str = "csg", dt: float = engine.DT,
+                        n_iter: int = engine.N_ITER):
+    """Engine steps ``steps`` of a rollout batch from ``carry``: the fingers
+    close by the closing law while the step index is below ``n_close``,
+    then hold under ``SHAKE_GRAVITY``.  Returns the new carry."""
+    T_inv = tf.pose_inverse(grasp_in_ob)
+    surf = _object_points(lib, params)
+    st, w, c, tch = carry
+    for i in steps:
+        closing = i < n_close
+        R = tf.quat_to_matrix(st.quat[..., 0, :])
+        pts_g = tf.transform_points(T_inv, st.pos[..., 0, None, :] + surf @ R.transpose(-1, -2))
+        w, c, tch, v_p, v_n = closing_step(pts_g, w, c, tch, closing, spec, dt)
+        env = gripper_env(grasp_in_ob, w, c, v_p, v_n, spec, dt=dt,
+                          grip=False if closing else tch[..., 0] & tch[..., 1])
+        st = engine.step(st, params, lib, env, dt=dt, gravity=0.0 if closing else SHAKE_GRAVITY,
+                         n_iter=n_iter, narrowphase=narrowphase)
+    return st, w, c, tch
+
+
+def grasp_rollout(lib: ShapeLib, shape_id, scale, grasp_in_ob: torch.Tensor,
+                  spec: GripperSpec = GripperSpec(), friction: float = 0.7,
+                  narrowphase: str = "csg", dt: float = engine.DT,
+                  n_iter: int = engine.N_ITER) -> dict:
+    """Close-then-shake rollout of a gripper at each pose of ``grasp_in_ob``
+    (..., 4, 4) on the object at identity, all poses one scene batch:
+    ``N_CLOSE_STEPS`` closing steps, then ``N_SHAKE_STEPS`` under
+    ``SHAKE_GRAVITY``, both rescaled to ``dt`` so their durations stay put.
+    Returns a dict of (...) tensors: ``success`` (no open-gripper collision
+    and the object moved at most ``SUCCESS_DISP``), ``collided``, the final
+    ``width`` and finger-midline ``center``, the object's pose after the
+    close and at the end, and its ``displacement``.  Object friction 0.7 is
+    the grasp-scoring setup; the gripper keeps :func:`gripper_env`'s 0.9."""
+    n_close = int(round(N_CLOSE_STEPS * engine.DT / dt))
+    n_shake = int(round(N_SHAKE_STEPS * engine.DT / dt))
+    params, carry, collided = grasp_rollout_start(lib, shape_id, scale, grasp_in_ob, spec,
+                                                  friction)
+    run = dict(n_close=n_close, spec=spec, narrowphase=narrowphase, dt=dt, n_iter=n_iter)
+    carry = grasp_rollout_steps(lib, params, grasp_in_ob, carry, range(n_close), **run)
+    post_close = carry[0]
+    final, w_final, c_final, _ = grasp_rollout_steps(
+        lib, params, grasp_in_ob, carry, range(n_close, n_close + n_shake), **run)
+    disp = tf.norm(final.pos[..., 0, :])
+    return {
+        "success": ~collided & (disp <= SUCCESS_DISP),
+        "collided": collided,
+        "width": w_final,
+        "center": c_final,
+        "ob_pose_final": tf.pose_from_qt(final.quat[..., 0, :], final.pos[..., 0, :]),
+        "ob_pose_close": tf.pose_from_qt(post_close.quat[..., 0, :], post_close.pos[..., 0, :]),
+        "displacement": disp,
+    }
+
+
+def verify_grasp(lib: ShapeLib, shape_id, scale, grasp_in_ob: torch.Tensor,
+                 spec: GripperSpec = GripperSpec(), friction: float = 0.7,
+                 narrowphase: str = "csg", dt: float = engine.DT,
+                 n_iter: int = engine.N_ITER) -> torch.Tensor:
+    """Success (...) bool of the close-and-shake test of each grasp pose
+    (..., 4, 4), the object at identity; a batch of poses is one scene
+    batch."""
+    return grasp_rollout(lib, shape_id, scale, grasp_in_ob, spec, friction, narrowphase,
+                         dt=dt, n_iter=n_iter)["success"]
+
+
+# ``verify_grasp`` broadcasts over leading axes, so a batch is the same call
+verify_grasp_batch = verify_grasp
+
+
+def perturbation_scores(generator: torch.Generator, lib: ShapeLib, shape_id, scale,
+                        grasp_poses: torch.Tensor, trials: int = 50,
+                        spec: GripperSpec = GripperSpec(), friction: float = 0.7,
+                        narrowphase: str = "csg", dt: float = engine.DT,
+                        n_iter: int = engine.N_ITER) -> torch.Tensor:
+    """Perturbation-robustness score per grasp: (G, 4, 4) -> (G,) in [0, 1],
+    the success fraction of ``trials`` random perturbations of each grasp
+    (uniform up to 5 mm and 10 degrees, drawn from ``generator``).  All G x
+    ``trials`` rollouts step as one scene batch."""
+    G = grasp_poses.shape[0]
+    offsets = tf.random_uniform_magnitude(generator, max_t=0.005, max_r_deg=10.0,
+                                          shape=(G, trials))
+    perturbed = torch.einsum("gij,gtjk->gtik", grasp_poses, offsets.to(grasp_poses.device))
+    succ = verify_grasp(lib, shape_id, scale, perturbed, spec, friction, narrowphase,
+                        dt=dt, n_iter=n_iter)
+    return torch.mean(succ.to(torch.float32), dim=-1)
 
 
 def finger_contact_points(obj_pts_grasp: torch.Tensor, width, spec: GripperSpec,

@@ -81,7 +81,21 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    NOCS-transfer gate and K2 on its frame; each net's device time a call
    at full width, with its multiply-adds; and the seg net's bf16 forward on
    the card held against the same module on the CPU, on the round's cloud;
-13. a ``kernels`` JSON line, the card line, then ``{"ok": true, ...}``.
+13. grasp-DB generation: one nut instance through ``generate_complete_grasps``
+   at ``config_grasp.yml``'s settings (42,700 cone poses through the
+   filter, up to 4,096 candidates x 50 perturbations, 12,800 rollouts of 100
+   engine steps a chunk) with every launch count set to 0 just before and
+   read just after: counters, score mean and bins, the balanced DB's size,
+   the time of sampling + filter and of scoring, rollouts a second; K1 held
+   against its plain version on that gate's own inputs (C = 200 and C = 1,
+   A = 7, D = 1); 20 rollout steps of a chunk profiled (launches a step,
+   busy share) and free of host waits; the 256 poses of the stored
+   ``nut_train_0`` DB that JAX's drift probe re-scores, re-scored and held
+   against the stored scores (Spearman >= 0.90, mean |diff| <= 0.07, means
+   within 0.03); one grid chunk on ``assets/nut_demo.obj``, twice, the same
+   candidates and scores both times;
+14. a ``grasp_db`` and a ``kernels`` JSON line, the card line, then
+   ``{"ok": true, ...}``.
 
 It imports nothing of the JAX package.  Without a GPU it exits non-zero
 before printing any result.
@@ -1426,6 +1440,172 @@ def learned_round(dev):
     return launches, out, rec
 
 
+# --------------------------------------------------------------------------
+# grasp-DB generation
+# --------------------------------------------------------------------------
+
+
+def grasp_db_phase(dev):
+    """Grasp-DB generation at full width: one nut instance through
+    ``generate_complete_grasps`` at ``config_grasp.yml``'s settings (200
+    surface points, 42,700 cone poses through the filter, up to 4,096
+    candidates x 50 perturbations in chunks of 256 grasps) with every launch
+    count set to 0 just before and read just after; K1 held on that gate's
+    recorded inputs; 20 rollout steps of one chunk profiled; the stored
+    ``nut_train_0`` DB's drift-probe subsample re-scored and held against
+    its stored scores; one grid chunk on ``assets/nut_demo.obj``, run twice
+    to show a DB is deterministic.  Returns (launches, record)."""
+    from catgrasp_tpu_torch.config.loader import load_config
+    from catgrasp_tpu_torch.core import transforms as tf
+    from catgrasp_tpu_torch.geom import csg, primitives
+    from catgrasp_tpu_torch.grasp.gripper import Gripper
+    from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
+    from catgrasp_tpu_torch.pipelines import generate_grasp as pgg
+    from catgrasp_tpu_torch.pipelines import rescore_grasp_db as rdb
+    from catgrasp_tpu_torch.sim import env_grasp as eg
+    from catgrasp_tpu_torch.sim.types import build_shape_lib
+
+    cfg, gripper = load_config("config_grasp.yml"), Gripper.default()
+    bins = np.array(cfg["classes"])
+    trials = int(cfg["perturbation_trials"])
+    calls, entry = [], collision.box_hits_depths
+
+    def recorder(*args):
+        calls.append((args, entry(*args)))
+        return calls[-1][1]
+
+    collision.box_hits_depths = recorder
+    collision.box_hits.launches = 0
+    render_march.march_csg.launches = 0
+    fused_rollout.rollout_fused.launches = 0
+    info = {}
+    t0 = time.perf_counter()
+    try:
+        db = pgg.generate_complete_grasps("nut", "train", 0, gripper, cfg, device=dev, info=info)
+        torch.cuda.synchronize()
+    finally:
+        collision.box_hits_depths = entry
+    wall = time.perf_counter() - t0
+    launches = {"box_hits": collision.box_hits.launches,
+                "march_csg": render_march.march_csg.launches,
+                "rollout_fused": fused_rollout.rollout_fused.launches}
+    scores, n = db["scores"], len(db["scores"])
+    hist = np.histogram(scores, bins)[0].tolist()
+    bal = pgg.balance_score_bins(db, bins, int(cfg["max_per_score_bin"]))
+    n_poses = int(calls[0][0][0].shape[0]) if calls else 0
+    stats = info["stats"]
+    rollouts_s = n * trials / info["scoring_s"]
+    print(f"grasp DB, nut/train/0 at full width: {n_poses:,} cone poses filtered, counters "
+          f"{json.dumps(stats)}, {n:,} candidates scored x {trials} trials; score mean "
+          f"{scores.mean():.4f}, bins {hist}, balanced DB {len(bal['scores']):,}; wall "
+          f"{wall:.2f} s = sampling + filter {info['sample_filter_s']:.3f} s + scoring "
+          f"{info['scoring_s']:.3f} s ({rollouts_s:,.1f} rollouts/s of "
+          f"{eg.N_CLOSE_STEPS + eg.N_SHAKE_STEPS} steps)", flush=True)
+    print(f"grasp DB launches: {json.dumps(launches)}", flush=True)
+    if launches != {"box_hits": 2, "march_csg": 0, "rollout_fused": 0} or len(calls) != 2:
+        fail(f"grasp DB: launches {launches}, {len(calls)} K1 calls recorded: expected the "
+             f"filter's 2 K1 launches and nothing else")
+    if n_poses != 42_700:
+        fail(f"grasp DB: {n_poses} cone poses, expected 100 x 61 x 7 = 42,700")
+    if db["grasp_poses"].shape != (n, 4, 4) or not 0 < n <= 4096 \
+            or not np.isfinite(db["grasp_poses"]).all() \
+            or not (np.isfinite(scores).all() and 0 <= scores.min() <= scores.max() <= 1):
+        fail("grasp DB: candidate poses or scores out of shape or range")
+    if not 0.3 < scores.mean() < 0.9:
+        fail(f"grasp DB: score mean {scores.mean():.4f}, JAX's 12 nut DBs lie in 0.50-0.76")
+
+    # K1 on the gate's own inputs: the object cloud against the 3 open boxes
+    # and the point at infinity against the closing box
+    parts = [measure_box_hits(f"grasp DB gate, {name}", collision, *args, hit_k=hit)
+             for name, (args, hit) in zip(("open gripper", "closing volume"), calls)]
+    gate = add_up(parts)
+    bound, bound_by = bound_of(gate["ops"], gate["bytes"])
+    gate.update(bound_ms=bound, bound_by=bound_by, P=n_poses)
+    print(f"K1 box_hits, the grasp DB's whole gate (P={n_poses}, C=200 and C=1, A=7, D=1, 2 "
+          f"launches): {gate['n_diff']} of {gate['n_entries']} entries differ; kernel "
+          f"{gate['ms']:.4f} ms, wrappers {gate['wrapper_ms']:.4f} ms, plain "
+          f"{gate['plain_ms']:.3f} ms, bound {bound:.4f} ms ({bound_by})", flush=True)
+
+    # 20 rollout steps of one chunk (256 grasps x 50 perturbations): wall,
+    # launches a step and the device's busy share
+    lib = build_shape_lib([primitives.make_instance("nut", "train", 0)],
+                          [csg.make_csg_instance("nut", "train", 0)], n_surf=64, seed=0,
+                          device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    chunk = torch.from_numpy(db["grasp_poses"][:256]).to(dev)
+    offsets = tf.random_uniform_magnitude(gen, 0.005, 10.0, shape=(len(chunk), trials))
+    perturbed = torch.einsum("gij,gtjk->gtik", chunk, offsets)
+    params, carry, _ = eg.grasp_rollout_start(lib, 0, 1.0, perturbed, gripper.spec)
+
+    def steps():
+        return eg.grasp_rollout_steps(lib, params, perturbed, carry, range(20),
+                                      eg.N_CLOSE_STEPS, gripper.spec)
+
+    steps()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    steps()
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t1
+    print(f"grasp DB: 20 closing steps of a {perturbed.shape[0]} x {perturbed.shape[1]} "
+          f"rollout batch {steps_s * 1e3:.1f} ms ({steps_s / 20 * 1e3:.2f} ms a step)",
+          flush=True)
+    busy = device_profile(f"20 grasp-rollout steps of {perturbed.shape[0] * trials} scenes",
+                          steps, steps_s)
+    print(f"grasp DB: {busy['launches'] / 20:.1f} launches a rollout step (the closing law, "
+          f"the gripper env and the engine step)", flush=True)
+    no_host_waits("5 grasp-rollout steps of a chunk",
+                  lambda: eg.grasp_rollout_steps(lib, params, perturbed, carry, range(48, 53),
+                                                 eg.N_CLOSE_STEPS, gripper.spec))
+
+    # the same candidates as JAX's drift probe: nut_train_0's stored v3 DB
+    db_path = os.path.join("dataset", "grasps", "nut_train_0_complete_grasp.npz")
+    _, _, stored, fresh, rescore_s = rdb.rescore(os.path.join(REPO, db_path), 256, trials,
+                                                 device=dev)
+    row = rdb.drift_row(db_path, stored, fresh, trials, rescore_s)
+    print(f"grasp DB rescore of nut_train_0's 256 drift-probe poses x {trials} trials (one "
+          f"chunk, {rescore_s:.2f} s): Spearman {row['spearman']:.4f}, mean |diff| "
+          f"{row['mean_abs_diff']:.4f}, means stored {row['stored_mean']:.4f} fresh "
+          f"{row['fresh_mean']:.4f} (JAX re-scoring the same poses: 0.9663, 0.0436, 0.6767 / "
+          f"0.6797; limits >= 0.90, <= 0.07, within 0.03)", flush=True)
+    if row["spearman"] < 0.90 or row["mean_abs_diff"] > 0.07 \
+            or abs(row["fresh_mean"] - row["stored_mean"]) > 0.03:
+        fail("grasp DB: the rescore of nut_train_0 disagrees with its stored v3 scores")
+
+    # one grid chunk on the demo mesh, twice: K1 launches, time, determinism
+    obj = os.path.join(REPO, "assets", "nut_demo.obj")
+    grid = []
+    for _ in range(2):
+        collision.box_hits.launches = 0
+        ginfo = {}
+        t2 = time.perf_counter()
+        g = pgg.generate_complete_grasps("nut", "train", 0, gripper, cfg, max_candidates=256,
+                                         obj_path=obj, device=dev, info=ginfo)
+        torch.cuda.synchronize()
+        grid.append((g, time.perf_counter() - t2, collision.box_hits.launches, ginfo))
+    (g, grid_s, grid_k1, ginfo), (g2, *_) = grid
+    same = bool(np.array_equal(g["grasp_poses"], g2["grasp_poses"])
+                and np.array_equal(g["scores"], g2["scores"]))
+    print(f"grasp DB grid chunk on assets/nut_demo.obj ({len(g['scores'])} x {trials}, grid "
+          f"narrowphase): {grid_s:.2f} s (sampling + filter {ginfo['sample_filter_s']:.3f} s, "
+          f"scoring {ginfo['scoring_s']:.3f} s), K1 launches {grid_k1}, score mean "
+          f"{g['scores'].mean():.4f}; a second run gives the same candidates and scores: "
+          f"{same}", flush=True)
+    if grid_k1 != 2 or len(g["scores"]) != 256 or not np.isfinite(g["scores"]).all():
+        fail("grasp DB grid chunk")
+    if not same:
+        fail("grasp DB: two runs of one seed gave other candidates or scores")
+    record = {"n_poses": n_poses, "n_candidates": n, "stats": stats,
+              "score_mean": float(scores.mean()), "bins": hist, "balanced": len(bal["scores"]),
+              "wall_s": wall, "sample_filter_s": info["sample_filter_s"],
+              "scoring_s": info["scoring_s"], "rollouts_per_s": rollouts_s,
+              "step_ms": steps_s / 20 * 1e3, "profile": busy, "rescore": row,
+              "grid_chunk": {"s": grid_s, "k1_launches": grid_k1,
+                             "score_mean": float(g["scores"].mean()), "deterministic": same},
+              "k1": gate}
+    return launches, record
+
+
 def no_host_waits(label: str, fn) -> None:
     """Call ``fn`` once to warm it up, then again under
     ``torch.cuda.set_sync_debug_mode("warn")``: fail if any operation in it
@@ -1466,9 +1646,10 @@ def no_host_waits(label: str, fn) -> None:
         fail(f"{label} made the host wait for the device {len(waits)} times")
 
 
-def device_profile(label: str, fn, wall_s: float) -> None:
+def device_profile(label: str, fn, wall_s: float) -> dict:
     """Print the device time of ``fn`` by CUDA kernel (torch.profiler) and
-    its busy share of ``wall_s``, the same work's wall time unprofiled."""
+    its busy share of ``wall_s``, the same work's wall time unprofiled;
+    return the launches, busy and wall ms and the busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1491,6 +1672,8 @@ def device_profile(label: str, fn, wall_s: float) -> None:
     for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
         print(f"    {t / 1e3:9.3f} ms {100 * t / max(busy_us, 1e-9):5.1f}%  x{c:<6d} {name[:90]}",
               flush=True)
+    return {"launches": launches, "busy_ms": busy_us / 1e3, "wall_ms": wall_s * 1e3,
+            "busy_share": busy_us / 1e6 / wall_s}
 
 
 def main() -> None:
@@ -1577,6 +1760,7 @@ def main() -> None:
     k3 = check_rollout(dev, logs["fused_rollout"])
     bench_launches, at_bench = bench_path(dev)
     learned_launches, learned, nets = learned_round(dev)
+    db_launches, grasp_db = grasp_db_phase(dev)
 
     from catgrasp_tpu_torch.ops import render_march
     k1_bound, k1_by = bound_of(k1["ops"], k1["bytes"])
@@ -1585,7 +1769,7 @@ def main() -> None:
     random_by_depth, _ = bound_of(k1_random["ops_by_depth"], k1_random["bytes"])
     kernels = [
         {"name": "box_hits", "route": "cuda", "source": "catgrasp_tpu_torch/csrc/box_hits.cu",
-         "replaces": "catgrasp_tpu/ops/collision.py:81", "launches": launches["box_hits"],
+         "replaces": "catgrasp_tpu/ops/collision.py:82", "launches": launches["box_hits"],
          "launches_bench_path": bench_launches["box_hits"],
          "max_abs_err": float(k1["n_diff"] > 0), "mismatch_frac": k1["n_diff"] / k1["n_entries"],
          "ms": k1["ms"], "wrapper_ms": k1["wrapper_ms"], "timing": k1["timing"],
@@ -1620,7 +1804,16 @@ def main() -> None:
          "launches_floating_attempt": float_launches["box_hits"],
          "launches_grid_round": grid_launches["box_hits"],
          "launches_learned_round": learned_launches["box_hits"],
-         "at_nocs_gate_learned": nocs_gate_row("learned round", "nut", learned["k1"])},
+         "at_nocs_gate_learned": nocs_gate_row("learned round", "nut", learned["k1"]),
+         "launches_grasp_db": db_launches["box_hits"],
+         "at_grasp_db_gate": {
+             "shapes": f"the grasp DB's collision gate on nut/train/0's own inputs: "
+                       f"P={grasp_db['k1']['P']}; the 200-point object cloud (3 open boxes) "
+                       f"and the 1-point background at infinity (closing box); A=7, D=1",
+             "mismatch_frac": grasp_db["k1"]["n_diff"] / grasp_db["k1"]["n_entries"],
+             "ms": grasp_db["k1"]["ms"], "wrapper_ms": grasp_db["k1"]["wrapper_ms"],
+             "plain_ms": grasp_db["k1"]["plain_ms"], "bound_ms": grasp_db["k1"]["bound_ms"],
+             "bound_by": grasp_db["k1"]["bound_by"]}},
         {"name": "march_csg", "route": "cuda", "source": "catgrasp_tpu_torch/csrc/march_csg.cu",
          "replaces": "catgrasp_tpu/ops/render_march.py:224", "launches": launches["march_csg"],
          "launches_bench_path": bench_launches["march_csg"],
@@ -1646,6 +1839,7 @@ def main() -> None:
          "launches_floating_attempt": float_launches["march_csg"],
          "launches_grid_round": grid_launches["march_csg"],
          "launches_learned_round": learned_launches["march_csg"],
+         "launches_grasp_db": db_launches["march_csg"],
          "at_learned_round": {k: learned["k2"][k] for k in (
              "shapes", "seg_agree", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}},
         {"name": "rollout_fused", "route": "cuda",
@@ -1659,6 +1853,7 @@ def main() -> None:
          "launches_floating_attempt": float_launches["rollout_fused"],
          "launches_grid_round": grid_launches["rollout_fused"],
          "launches_learned_round": learned_launches["rollout_fused"],
+         "launches_grasp_db": db_launches["rollout_fused"],
          "max_abs_err": k3["max_abs_err"], "within_tol_frac": k3["within_tol_frac"],
          "ms": k3["ms"], "wrapper_ms": k3["wrapper_ms"], "prepare_ms": k3["prepare_ms"],
          "timing": k3["timing"], "plain_ms": k3["plain_ms"], "engine_ms": k3["engine_ms"],
@@ -1667,6 +1862,7 @@ def main() -> None:
          "shapes": k3["shapes"]},
     ]
     print(json.dumps({"nets": nets}), flush=True)
+    print(json.dumps({"grasp_db": {k: v for k, v in grasp_db.items() if k != "k1"}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -12,8 +12,10 @@ import pytest
 import torch
 
 from catgrasp_tpu_torch import bench, convert
-from catgrasp_tpu_torch.geom import csg, primitives, sdf, sdf_io
+from catgrasp_tpu_torch.geom import collision_manager, csg, primitives, sdf, sdf_io
+from catgrasp_tpu_torch.grasp.gripper import Gripper
 from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
+from catgrasp_tpu_torch.pipelines import generate_grasp, make_sdf, rescore_grasp_db
 from catgrasp_tpu_torch.pipelines import run_grasp_simulation as rgs
 from catgrasp_tpu_torch.predict.artifacts import load_predicters
 from catgrasp_tpu_torch.sim import engine, env_pile
@@ -43,7 +45,10 @@ NEEDED = ("catgrasp_tpu_torch.geom.sdf", "catgrasp_tpu_torch.geom.sdf_io",
           "catgrasp_tpu_torch.nn.pointnet", "catgrasp_tpu_torch.nn.voxelnet",
           "catgrasp_tpu_torch.nn.cluster", "catgrasp_tpu_torch.predict.ckpt",
           "catgrasp_tpu_torch.predict.ransac", "catgrasp_tpu_torch.predict.predicter",
-          "catgrasp_tpu_torch.predict.artifacts", "catgrasp_tpu_torch.data.augment")
+          "catgrasp_tpu_torch.predict.artifacts", "catgrasp_tpu_torch.data.augment",
+          "catgrasp_tpu_torch.pipelines.generate_grasp", "catgrasp_tpu_torch.pipelines.make_sdf",
+          "catgrasp_tpu_torch.pipelines.rescore_grasp_db", "catgrasp_tpu_torch.grasp.contacts",
+          "catgrasp_tpu_torch.geom.collision_manager")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -59,7 +64,22 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert lines[:-2] == [], f"imported: {lines[:-2]}"
 
 
-def test_entry_points_raise_without_a_gpu(monkeypatch):
+def test_the_ports_outputs_default_to_untracked_directories():
+    """``generate_grasp`` and ``make_sdf`` write where git tracks nothing by
+    default (directories ``.gitignore`` lists), never over the JAX
+    package's DBs and grids."""
+    from catgrasp_tpu_torch.pipelines import generate_grasp, make_sdf
+    with open(os.path.join(REPO, ".gitignore")) as fh:
+        ignored = {line.strip().rstrip("/") for line in fh if line.strip()}
+    for out in (generate_grasp.DEFAULT_OUT_DIR, make_sdf.DEFAULT_OUT_DIR):
+        assert out in ignored, out
+        if os.path.isdir(os.path.join(REPO, ".git")):
+            r = subprocess.run(["git", "ls-files", "--", out], cwd=REPO, capture_output=True,
+                               text=True, timeout=60)
+            assert r.returncode == 0 and r.stdout == "", r.stdout
+
+
+def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     mesh = primitives.make_instance("nut", "test", 0)
     calls = [
@@ -86,6 +106,13 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         lambda: build_shape_lib([mesh], n_surf=8, bake_grids=True),
         lambda: sdf_io.grid_from_file(os.path.join(REPO, "assets", "nut_demo.obj")),
         lambda: load_predicters(os.path.join(REPO, "artifacts_tracked", "nut"), "nut"),
+        lambda: generate_grasp.generate_complete_grasps(
+            "nut", "train", 0, Gripper.default(), {"max_num_surface_points": 2}),
+        lambda: generate_grasp.main(["--index", "0", "--out_dir", str(tmp_path)]),
+        lambda: make_sdf.make_sdf_one(mesh.vertices, mesh.faces),
+        lambda: rescore_grasp_db.rescore(
+            os.path.join(REPO, "dataset", "grasps", "nut_train_0_complete_grasp.npz"), 2, 1),
+        lambda: collision_manager.CollisionManager(),
         lambda: rgs.main(["--class_name", "nut", "--n_rounds", "1", "--oracle", "0",
                           "--artifacts", os.path.join(REPO, "artifacts_tracked", "nut")]),
     ]

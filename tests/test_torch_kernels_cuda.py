@@ -150,6 +150,36 @@ def test_box_hits_on_the_nocs_gate(dev):
         assert (k != p).float().mean().item() <= 1e-5
 
 
+def test_box_hits_on_the_grasp_db_gate(dev):
+    """K1 at the grasp DB's collision gate: the cone sampler's 100 x 61 x 7
+    = 42,700 poses on a nut's 200 surface points at ``config_grasp.yml``'s
+    settings, the open gripper against those 200 points and the closing
+    volume against one point at infinity, 7 offsets, 1 depth: at most 1e-5
+    of the entries differ from the plain version."""
+    from catgrasp_tpu_torch.grasp.gripper import Gripper
+    from catgrasp_tpu_torch.grasp.sampler import PointConeGraspSampler
+    mesh = primitives.make_instance("nut", "train", 0)
+    pts, nrm = mesh.sample_surface(200, np.random.default_rng(0), return_normals=True)
+    cloud = torch.from_numpy(pts).to(dev)
+    sampler = PointConeGraspSampler(Gripper.default(), max_num_samples=100, n_sphere_dir=10,
+                                    approach_step=0.006)
+    T = sampler.sample_grasp_poses(cloud, torch.from_numpy(nrm).to(dev),
+                                   torch.Generator(device=dev).manual_seed(0))
+    assert T.shape == (42_700, 4, 4)
+    t_inv = collision.pose_inverse_batch(T).contiguous()
+    spec = GripperSpec()
+    far = torch.full((1, 3), 999.0, device=dev)
+    for boxes, c in ((gfilter._static_open_boxes(spec), cloud),
+                     (gfilter._static_enclosed_box(spec), far)):
+        mask = torch.ones(len(c), dtype=torch.bool, device=dev)
+        k = collision.box_hits_depths(t_inv, c, mask, boxes, OFFSETS, (0.0,), 5e-4)
+        p = collision.box_hits_depths_plain(t_inv, c, mask, boxes, OFFSETS, (0.0,), 5e-4)
+        torch.cuda.synchronize()
+        assert k.shape == (42_700, 1, 7)
+        assert (k != p).float().mean().item() <= 1e-5
+        assert (int(p.sum()) > 0) == (c is cloud)
+
+
 def _march_scene(dev):
     classes = ("nut", "screw", "hnm")
     lib = build_shape_lib([primitives.make_instance(c, "train", 0) for c in classes],

@@ -452,11 +452,15 @@ def test_place_success_band_edges(cls):
 
 def test_quality_direction_table_is_jax_draw():
     """The port's direction table is exactly the installed JAX's
-    ``jax.random.normal(PRNGKey(0), (256, 6))``, before normalisation."""
+    ``jax.random.normal(PRNGKey(0), (512, 6))``, before normalisation, and
+    its first 256 rows are the (256, 6) draw ``parallel_jaw_quality``
+    takes."""
     table = np.load(pquality.DIRS_FILE)
-    want = np.asarray(jax.random.normal(jax.random.PRNGKey(0), (256, 6)))
     assert table.dtype == np.float32
-    np.testing.assert_array_equal(table, want)
+    np.testing.assert_array_equal(
+        table, np.asarray(jax.random.normal(jax.random.PRNGKey(0), (512, 6))))
+    np.testing.assert_array_equal(
+        table[:256], np.asarray(jax.random.normal(jax.random.PRNGKey(0), (256, 6))))
 
 
 @pytest.fixture(scope="module")
