@@ -12,7 +12,9 @@ The nets' weights cross over the same way: ``flax_state_dict`` turns a
 flax parameter tree (numpy arrays, as ``predict.ckpt.read_params`` reads
 it from a checkpoint) into the ``state_dict`` of the port's module, whose
 submodules carry the flax names
-(``PointNetEncoder_0.STN_1.MLPStack_0.Dense_2``).
+(``PointNetEncoder_0.STN_1.MLPStack_0.Dense_2``); ``flax_params`` is its
+inverse, a module's tensors (or any tensors of its parameters' shapes, as
+the optimizer's moments) as a flax parameter tree of numpy arrays.
 """
 from __future__ import annotations
 
@@ -103,3 +105,32 @@ def flax_state_dict(params: dict, prefix: str = "") -> dict:
             name = "weight"
         out[prefix + name] = torch.tensor(np.ascontiguousarray(a))
     return out
+
+
+def flax_params(state_dict: dict) -> dict:
+    """The flax parameter tree of a port module's tensors (``flax_state_dict``
+    inverted): nested dicts keyed by the module names, numpy arrays in
+    flax's layouts (Dense (in, out), Conv and ConvTranspose DHWIO, GroupNorm
+    ``scale``)."""
+    tree = {}
+    for key, v in state_dict.items():
+        *path, name = key.split(".")
+        a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        module = path[-1] if path else ""
+        if name == "weight" and module.startswith("GroupNorm"):
+            name = "scale"
+        elif name == "weight":
+            name = "kernel"
+            if a.ndim == 2:
+                a = a.T
+            elif a.ndim == 5 and module.startswith("ConvTranspose"):
+                a = np.flip(a.transpose(2, 3, 4, 0, 1), (0, 1, 2))
+            elif a.ndim == 5 and module.startswith("Conv"):
+                a = a.transpose(2, 3, 4, 1, 0)
+            else:
+                raise ValueError(f"unexpected weight {key} of shape {a.shape}")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[name] = np.ascontiguousarray(a)
+    return tree

@@ -1,7 +1,10 @@
-"""PointNet heads (``catgrasp_tpu/nn/pointnet.py`` in PyTorch), inference
-only: the grasp-quality classifier ``PointNetCls`` (10 score bins) and the
-per-point NUNOCS head ``PointNetSeg`` (3 axes x 100 bins), over the
-shared-MLP encoder with an input STN and a feature STN.
+"""PointNet heads (``catgrasp_tpu/nn/pointnet.py`` in PyTorch): the
+grasp-quality classifier ``PointNetCls`` (10 score bins) and the per-point
+NUNOCS head ``PointNetSeg`` (3 axes x 100 bins), over the shared-MLP
+encoder with an input STN and a feature STN, and the feature transform's
+regularizer.  ``PointNetCls`` drops units when called with ``train=True``,
+as the flax module does: each kept with probability 1 - p and scaled by
+1 / (1 - p).  Without it (the default, as in JAX) the call is deterministic.
 
 Submodules carry the flax module names (``PointNetEncoder_0.STN_1...``),
 so ``convert.flax_state_dict`` maps a checkpoint one to one.  Layers
@@ -98,24 +101,27 @@ class PointNetEncoder(nn.Module):
 
 class PointNetCls(nn.Module):
     """Grasp-quality classifier: a cloud in the grasp frame (B, N, 6) ->
-    (score-bin logits (B, n_out), the feature transform).  Dropout is the
-    identity at inference."""
+    (score-bin logits (B, n_out), the feature transform).  ``dropout`` is
+    the drop rate after the 512-wide layer when ``train`` is set."""
 
-    def __init__(self, n_out: int = 10, in_features: int = 6):
+    def __init__(self, n_out: int = 10, in_features: int = 6, dropout: float = 0.4):
         super().__init__()
+        self.dropout = dropout
         self.PointNetEncoder_0 = PointNetEncoder(in_features)
         self.MLPStack_0 = MLPStack(1024, (512,))
         self.MLPStack_1 = MLPStack(512, (256,))
         self.Dense_0 = nn.Linear(256, n_out)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         g, _, _, trans_feat = self.PointNetEncoder_0(x)
-        return self.Dense_0(self.MLPStack_1(self.MLPStack_0(g))), trans_feat
+        h = F.dropout(self.MLPStack_0(g), self.dropout, train)
+        return self.Dense_0(self.MLPStack_1(h)), trans_feat
 
 
 class PointNetSeg(nn.Module):
     """Per-point head: (B, N, 6) -> (NUNOCS bin logits (B, N, n_out), the
-    feature transform); n_out = 3 x bins."""
+    feature transform); n_out = 3 x bins.  ``train`` changes nothing (the
+    flax module takes it too)."""
 
     def __init__(self, n_out: int = 300, in_features: int = 6):
         super().__init__()
@@ -123,7 +129,16 @@ class PointNetSeg(nn.Module):
         self.MLPStack_0 = MLPStack(1088, (512, 256, 128))
         self.Dense_0 = nn.Linear(128, n_out)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         g, point_feat, _, trans_feat = self.PointNetEncoder_0(x)
         h = torch.cat([g[:, None, :].expand(-1, x.shape[1], -1), point_feat], dim=-1)
         return self.Dense_0(self.MLPStack_0(h)), trans_feat
+
+
+def feature_transform_regularizer(trans_feat: torch.Tensor) -> torch.Tensor:
+    """The mean over the batch of ||I - A A^T||_F^2 of the 64x64 feature
+    transforms A (B, 64, 64)."""
+    k = trans_feat.shape[-1]
+    eye = torch.eye(k, dtype=trans_feat.dtype, device=trans_feat.device)
+    d = eye - trans_feat @ trans_feat.transpose(-1, -2)
+    return torch.mean(torch.sum(d * d, dim=(-2, -1)))

@@ -1,21 +1,26 @@
 """Instance-segmentation net (``catgrasp_tpu/nn/voxelnet.py`` in
-PyTorch), inference only: voxelize the scene cloud into a dense grid, a
-3-level dense 3-D U-Net, and per-point heads (an offset to the instance
-centre, bounded to 5 cm, and an objectness logit).
+PyTorch): voxelize the scene cloud into a dense grid, a 3-level dense 3-D
+U-Net, and per-point heads (an offset to the instance centre, bounded to 5
+cm, and an objectness logit).
 
 Precision follows the JAX module's default ``compute_dtype``: the
 convolutions and transposed convolutions run in bfloat16 (inputs, kernels,
-outputs and the bias add), every GroupNorm and the head in float32.
+outputs and the bias add), every GroupNorm and the head in float32; the
+parameters stay float32 and gradients flow through the same casts.
 Convolutions pad SAME (1 voxel for 3x3x3).  Submodules carry the flax names
 (``VoxelUNet_0.ConvBlock_3.Conv_1``) for ``convert.flax_state_dict``;
-the grid runs in torch's (1, C, D, H, W) layout.
+the grid runs in torch's (B, C, D, H, W) layout.  A batch of scenes (the
+trainer's; JAX ``vmap``s the one-scene net) is voxelized with a scene index
+into one grid per scene, and each scene is normalised alone.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import constant
 from .pointnet import GN_EPS
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -27,22 +32,32 @@ def voxelize(xyz: torch.Tensor, feats: torch.Tensor, origin: torch.Tensor,
     """Mean-pool point features into a dense grid: xyz (N, 3), feats (N, C)
     -> (grid (D, H, W, C + 1), the last channel occupancy in {0, 1}; the
     flat voxel index of each point (N,)).  Points outside the grid are
-    clipped to its border voxels, not dropped.  One ``index_add_``."""
+    clipped to its border voxels, not dropped.  One ``index_add_``.
+    Leading scene axes (B, N, ...) with origin (B, 3) give a grid per scene
+    (B, D, H, W, C + 1) and indices within each scene's grid (B, N), still
+    in one ``index_add_`` over the scene-indexed voxels."""
     D, H, W = grid_dims
+    lead = xyz.shape[:-2]
+    dev = xyz.device
     # times the f32 reciprocal, not over the voxel size: XLA rewrites the
     # JAX module's division by a constant so under jit, which is how the
     # net was trained and is run; a point on a voxel face (a flat face at
     # a whole number of voxels from the origin) lands a voxel lower
-    inv = torch.reciprocal(torch.tensor(voxel_size, dtype=torch.float32, device=xyz.device))
-    ijk = torch.floor((xyz - origin) * inv).to(torch.int64)
-    hi = torch.tensor([D - 1, H - 1, W - 1], device=xyz.device)
+    inv = float(np.float32(1.0) / np.float32(voxel_size))
+    ijk = torch.floor((xyz - origin[..., None, :]) * inv).to(torch.int64)
+    hi = constant((D - 1, H - 1, W - 1), torch.int64, dev)
     ijk = torch.minimum(torch.clamp(ijk, min=0), hi)
-    flat = (ijk[:, 0] * H + ijk[:, 1]) * W + ijk[:, 2]
-    f = torch.cat([feats, torch.ones_like(feats[:, :1])], dim=-1)
-    sums = f.new_zeros((D * H * W, f.shape[1])).index_add_(0, flat, f)
+    flat = (ijk[..., 0] * H + ijk[..., 1]) * W + ijk[..., 2]
+    n_vox = D * H * W
+    B = int(np.prod(lead)) if lead else 1
+    scene = (flat.reshape(B, -1) + torch.arange(B, device=dev)[:, None] * n_vox).reshape(-1) \
+        if lead else flat
+    f = torch.cat([feats, torch.ones_like(feats[..., :1])], dim=-1)
+    f = f.reshape(-1, f.shape[-1])
+    sums = f.new_zeros((B * n_vox, f.shape[1])).index_add_(0, scene, f)
     count = torch.clamp(sums[:, -1:], min=1.0)
     grid = torch.cat([sums[:, :-1] / count, torch.clamp(sums[:, -1:], max=1.0)], dim=-1)
-    return grid.reshape(D, H, W, -1), flat
+    return grid.reshape(*lead, D, H, W, -1), flat
 
 
 def _conv(conv: nn.Module, x: torch.Tensor, transposed: bool = False) -> torch.Tensor:
@@ -73,7 +88,7 @@ class ConvBlock(nn.Module):
 
 
 class VoxelUNet(nn.Module):
-    """3-level dense U-Net over a (1, C, D, H, W) grid -> (base, D, H, W)."""
+    """3-level dense U-Net over (B, C, D, H, W) grids -> (B, base, D, H, W)."""
 
     def __init__(self, in_features: int = 4, base: int = 16):
         super().__init__()
@@ -92,13 +107,14 @@ class VoxelUNet(nn.Module):
         u2 = _conv(self.ConvTranspose_0, e3, transposed=True).float()
         u2 = self.ConvBlock_3(torch.cat([u2, e2], dim=1))
         u1 = _conv(self.ConvTranspose_1, u2, transposed=True).float()
-        return self.ConvBlock_4(torch.cat([u1, e1], dim=1))[0]
+        return self.ConvBlock_4(torch.cat([u1, e1], dim=1))
 
 
 class SegNet(nn.Module):
     """(xyz (N, 3), normals (N, 3), origin (3,)) -> (offsets (N, 3), objectness
     logits (N,)), over a ``grid_dims`` grid of ``voxel_size`` voxels whose
-    corner is ``origin``."""
+    corner is ``origin``.  A batch of scenes (B, N, 3), (B, N, 3), (B, 3)
+    gives (B, N, 3), (B, N): each scene as the one-scene call gives it."""
 
     def __init__(self, base: int = 16, voxel_size: float = 0.004,
                  grid_dims: tuple = (96, 96, 48)):
@@ -112,10 +128,21 @@ class SegNet(nn.Module):
         self.Dense_3 = nn.Linear(64, 1)
 
     def forward(self, xyz, feats, origin):
+        if xyz.dim() == 2:
+            off, obj = self.forward(xyz[None], feats[None], origin[None])
+            return off[0], obj[0]
+        B, N = xyz.shape[:2]
         grid, flat = voxelize(xyz, feats, origin, self.voxel_size, self.grid_dims)
-        vox = self.VoxelUNet_0(grid.permute(3, 0, 1, 2)[None])  # (base, D, H, W)
-        per_pt = vox.reshape(vox.shape[0], -1).T[flat]  # one gather
-        h = self.Dense_0(torch.cat([xyz - origin, feats, per_pt], dim=-1))
-        h = F.relu(self.Dense_1(F.relu(self.GroupNorm_0(h))))
+        # (B, base, D, H, W) from a contiguous (B, C, D, H, W) grid: the
+        # permuted view would make torch pick channels-last conv kernels,
+        # which round the bf16 convs otherwise than the NCDHW ones
+        vox = self.VoxelUNet_0(grid.permute(0, 4, 1, 2, 3).contiguous())
+        vox = vox.reshape(B, vox.shape[1], -1).transpose(1, 2)  # (B, D H W, base)
+        per_pt = torch.take_along_dim(vox, flat[..., None], dim=1)  # one gather
+        # the head runs on the (B N, C) points: its GroupNorm normalises each
+        # point alone, as flax's does on one scene's (N, 64)
+        h = torch.cat([xyz - origin[:, None], feats, per_pt], dim=-1).reshape(B * N, -1)
+        h = F.relu(self.Dense_1(F.relu(self.GroupNorm_0(self.Dense_0(h)))))
         # offsets bounded to the parts' scale (1-5 cm)
-        return 0.05 * torch.tanh(self.Dense_2(h)), self.Dense_3(h)[:, 0]
+        off = 0.05 * torch.tanh(self.Dense_2(h))
+        return off.reshape(B, N, 3), self.Dense_3(h)[:, 0].reshape(B, N)

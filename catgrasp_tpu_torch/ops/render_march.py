@@ -21,7 +21,7 @@ import torch
 from ..core import transforms as tf
 from ..geom import csg as csglib
 from ..sim.engine import StaticEnv, box_sdf_and_normal
-from ..sim.types import index_scenes
+from ..sim.types import as_batch
 from . import build
 
 TILE = 256  # rays of a strip: the tile of a bare ray set (a 1 x P image)
@@ -32,13 +32,24 @@ MAX_TILE_RAYS = 256  # rays of a kernel tile: one thread a ray
 
 def scene_sdf(lib, state, params, x: torch.Tensor):
     """φ per body at world points x (..., 3): ((..., N), local points
-    (..., N, 3)).  Inactive bodies read 1e9."""
-    R = tf.quat_to_matrix(state.quat)  # (N,3,3)
-    rel = x[..., None, :] - state.pos  # (...,N,3)
-    loc = torch.einsum("bji,...bj->...bi", R, rel) / params.scale[:, None]
-    shape = csglib.select_shape(lib.csg, params.shape_id)
-    phi = csglib.csg_sdf(shape, loc) * params.scale
-    return torch.where(state.active, phi, 1e9), loc
+    (..., N, 3)).  Inactive bodies read 1e9.  A batch of scenes ((B, N,
+    ...) state and parameters) takes points (B, ..., 3), each scene's own,
+    and gives each scene's values bit for bit as the scene alone."""
+    if state.pos.dim() == 2:
+        phi, loc = scene_sdf(lib, as_batch(state), as_batch(params), x[None])
+        return phi[0], loc[0]
+    B, N = state.pos.shape[:2]
+    lead = x.shape[1:-1]
+
+    def body(t):  # (B, N, ...) -> (B, 1, ..., 1, N, ...) against x's points
+        return t.reshape((B,) + (1,) * len(lead) + t.shape[1:])
+
+    R = tf.quat_to_matrix(state.quat)  # (B,N,3,3)
+    rel = x[..., None, :] - body(state.pos)  # (B,...,N,3)
+    loc = torch.einsum("sbji,s...bj->s...bi", R, rel) / body(params.scale)[..., None]
+    shape = csglib.select_shape(lib.csg, body(params.shape_id))
+    phi = csglib.csg_sdf(shape, loc) * body(params.scale)
+    return torch.where(body(state.active), phi, 1e9), loc
 
 
 def env_sdf(env: StaticEnv, x: torch.Tensor) -> torch.Tensor:
@@ -56,17 +67,14 @@ def march_csg_plain(lib, state, params, o_w, d_w, tmax, env=None,
     """Plain PyTorch march: every body at every ray for every step, no
     culling.  Analytic CSG distances are exact-or-conservative lower bounds,
     so the uncapped step never crosses a surface.  One scene ((N, ...) state
-    and parameters) gives t (P,); a batch ((B, N, ...)) gives (B, P), its
-    scenes marched one after another."""
-    if state.pos.dim() == 3:
-        return torch.stack([march_csg_plain(lib, index_scenes(state, b), index_scenes(params, b),
-                                            o_w, d_w, tmax, env, n_steps, hit_eps)
-                            for b in range(state.pos.shape[0])])
+    and parameters) gives t (P,); a batch ((B, N, ...)) gives (B, P), all
+    its scenes marched together."""
     P = d_w.shape[0]
-    t = torch.full((P,), 0.05, device=d_w.device)
-    done = torch.zeros((P,), dtype=torch.bool, device=d_w.device)
+    lead = tuple(state.pos.shape[:-2])
+    t = torch.full(lead + (P,), 0.05, device=d_w.device)
+    done = torch.zeros(lead + (P,), dtype=torch.bool, device=d_w.device)
     for _ in range(n_steps):
-        x = o_w + t[:, None] * d_w
+        x = o_w + t[..., None] * d_w
         phi_b, _ = scene_sdf(lib, state, params, x)
         phi = torch.amin(phi_b, dim=-1)
         if env is not None:

@@ -10,8 +10,18 @@ march is ``march_grid``: plain PyTorch on the device by design, since K2
 computes CSG only and the JAX package marches grids with its XLA scan, not
 with a Pallas kernel.  The label passes (seg, depth, NUNOCS, normals, xyz)
 evaluate the scene once more at the converged points.
+
+The data generator's batches carry one camera a scene (its jittered
+cameras).  The kernel marches one camera's rays through many scenes, so
+``march_frames`` marches such a batch in each camera's own frame: every
+scene's bodies are moved into it, and the env boxes join them as one-box
+CSG bodies (``camera_frame_scenes``), which one launch then marches along
+the shared camera-frame rays.  Distances along a ray do not change under the rigid
+motion, so the label passes run in the world frame as for one camera.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 
@@ -202,3 +212,179 @@ def render_batch(lib: ShapeLib, states: SceneState, params: SceneParams, K, cam_
     outs = [shade(lib, index_scenes(states, b), index_scenes(params, b), cam_in_world, H, W,
                   env, d_w, d_cam, tmax, t[b], geometry) for b in range(B)]
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+# --------------------------------------------------------------------------
+# a camera a scene: the march in the cameras' frames
+# --------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class MarchLib:
+    """What the march reads of a shape library: the CSG trees and the
+    bounding radii."""
+
+    csg: csglib.CsgShape
+    radius: torch.Tensor
+
+
+def with_env_shapes(lib: ShapeLib, env: StaticEnv) -> MarchLib:
+    """The library's CSG trees and radii with one shape appended per env
+    box: a single BOX slot of the box's half extents at the shape's origin,
+    which evaluates the box's distance as the march's env term does.  Shape
+    ``lib.num_shapes + m`` is env box ``m``."""
+    M, S = env.center.shape[0], lib.csg.types.shape[-1]
+    dev = lib.device
+    types = torch.full((M, S), csglib.NONE, dtype=torch.int32, device=dev)
+    types[:, 0] = csglib.BOX
+    prm = torch.zeros((M, S, 3), device=dev)
+    prm[:, 0] = env.half
+    csg = csglib.CsgShape(types=torch.cat([lib.csg.types, types]),
+                          ops=torch.cat([lib.csg.ops, torch.ones_like(types)]),
+                          params=torch.cat([lib.csg.params, prm]),
+                          offsets=torch.cat([lib.csg.offsets, torch.zeros_like(prm)]))
+    radius = torch.cat([lib.radius, torch.linalg.vector_norm(env.half, dim=-1)])
+    return MarchLib(csg=csg, radius=radius.contiguous())
+
+
+def camera_frame_scenes(lib: ShapeLib, states: SceneState, params: SceneParams,
+                        cams: torch.Tensor, env: StaticEnv | None = None):
+    """(march library, states, params) of a batch of scenes (B, N, ...) seen
+    by one camera each (B, 4, 4), moved into each camera's frame.  With an
+    env its M boxes follow the N bodies in every scene as bodies of scale 1
+    (shapes from ``with_env_shapes``), active where the box is enabled."""
+    T_cw = tf.pose_inverse(cams)
+    R, t = T_cw[:, :3, :3], T_cw[:, :3, 3]
+    q_cw = tf.matrix_to_quat(R)[:, None]
+    pos = torch.einsum("bij,bnj->bni", R, states.pos) + t[:, None]
+    quat = tf.quat_mul(q_cw.expand_as(states.quat), states.quat)
+    active, sid, scale = states.active, params.shape_id, params.scale
+    mlib = MarchLib(csg=lib.csg, radius=lib.radius)
+    if env is not None:
+        B, M = states.pos.shape[0], env.center.shape[0]
+        mlib = with_env_shapes(lib, env)
+        pos = torch.cat([pos, torch.einsum("bij,mj->bmi", R, env.center) + t[:, None]], dim=1)
+        quat = torch.cat([quat, tf.quat_mul(q_cw.expand(B, M, 4), env.quat.expand(B, M, 4))],
+                         dim=1)
+        active = torch.cat([active, env.enabled.expand(B, M)], dim=1)
+        sid = torch.cat([sid, (lib.num_shapes + torch.arange(M, device=sid.device)).expand(B, M)],
+                        dim=1)
+        scale = torch.cat([scale, torch.ones((B, M), device=scale.device)], dim=1)
+    zeros = torch.zeros_like(pos)
+    st = SceneState(pos=pos.contiguous(), quat=quat.contiguous(), linvel=zeros, angvel=zeros,
+                    active=active.contiguous())
+    par = SceneParams(shape_id=sid.contiguous(), scale=scale.contiguous(),
+                      mass=torch.ones_like(scale), inertia=torch.ones_like(pos),
+                      friction=torch.ones_like(scale))
+    return mlib, st, par
+
+
+def march_frames(lib: ShapeLib, states: SceneState, params: SceneParams, K: torch.Tensor,
+                 cams: torch.Tensor, H: int, W: int, env: StaticEnv | None = None,
+                 zfar: float = 3.0, n_steps: int = 64):
+    """March B scenes, each through its own camera's (H, W) pixel rays, in
+    one ``march_csg_batch`` call (one K2 launch on the GPU): (t (B, P), the
+    camera-frame unit directions (P, 3), tmax (P,)).  ``env`` as
+    ``camera_frame_scenes`` takes it."""
+    eye = torch.eye(4, device=states.pos.device)
+    o, d_cam, _, tmax = camera_rays(K, eye, H, W, zfar)
+    mlib, st, par = camera_frame_scenes(lib, states, params, cams, env)
+    t = rm.march_csg_batch(mlib, st, par, torch.zeros_like(o), d_cam, tmax, n_steps=n_steps,
+                           hit_eps=HIT_EPS, hw=(H, W))
+    return t, d_cam, tmax
+
+
+def shade_frames(lib: ShapeLib, states: SceneState, params: SceneParams, cams: torch.Tensor,
+                 H: int, W: int, env: StaticEnv | None, d_cam: torch.Tensor, tmax: torch.Tensor,
+                 t: torch.Tensor) -> dict:
+    """The label passes of B scenes marched by ``march_frames`` (t (B, P)),
+    each in the world frame of its own camera (B, 4, 4), scene by scene:
+    dict of (B, H, W[, C]) images."""
+    outs = [shade(lib, index_scenes(states, b), index_scenes(params, b), cams[b], H, W, env,
+                  d_cam @ cams[b, :3, :3].T, d_cam, tmax, t[b]) for b in range(t.shape[0])]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+
+def _body_phi(lib: ShapeLib, pos, quat, scale, shape_id, x):
+    """φ of one body a row of points, broadcasting: pos (..., 3), quat (...,
+    4), scale and shape_id (...), x (..., 3) -> (...)."""
+    R = tf.quat_to_matrix(quat)
+    loc = (R.transpose(-1, -2) @ (x - pos)[..., None])[..., 0] / scale[..., None]
+    return csglib.csg_sdf(csglib.select_shape(lib.csg, shape_id), loc) * scale
+
+
+def visibility_scenes(states: SceneState, params: SceneParams, cams: torch.Tensor):
+    """The frames of ``visibility_counts`` as one batch of B (N + 1) scenes:
+    scene b's full frame, then its N solo frames (only body i active), each
+    with scene b's camera.  Returns (states, params, cameras)."""
+    dev = states.pos.device
+    B, N = states.active.shape
+    solo = states.active[:, :, None] & torch.eye(N, dtype=torch.bool, device=dev)
+    active = torch.cat([states.active[:, None], solo], dim=1).reshape(B * (N + 1), N)
+
+    def rep(x):
+        return x[:, None].expand(B, N + 1, *x.shape[1:]).reshape(B * (N + 1), *x.shape[1:])
+
+    st = SceneState(pos=rep(states.pos), quat=rep(states.quat), linvel=rep(states.linvel),
+                    angvel=rep(states.angvel), active=active)
+    par = SceneParams(shape_id=rep(params.shape_id), scale=rep(params.scale),
+                      mass=rep(params.mass), inertia=rep(params.inertia),
+                      friction=rep(params.friction))
+    return st, par, rep(cams)
+
+
+def pixel_counts(lib: ShapeLib, states: SceneState, params: SceneParams, cams: torch.Tensor,
+                 d_cam: torch.Tensor, tmax: torch.Tensor, t: torch.Tensor):
+    """Each body's pixels in the frames of ``visibility_scenes`` marched to
+    ``t`` (B (N + 1), P): ((B, N) in the full frames, (B, N) alone).  A
+    body's pixel, as ``shade``'s seg has it: the body is the nearest active
+    one within 4 hit_eps of the converged point and the ray stopped short of
+    tmax."""
+    B, N = states.active.shape
+    t = t.reshape(B, N + 1, -1)
+    d_w = torch.einsum("bij,pj->bpi", cams[:, :3, :3], d_cam)  # (B, P, 3)
+    x = cams[:, None, None, :3, 3] + t[..., None] * d_w[:, None]  # (B, N + 1, P, 3)
+    short = t < tmax
+    # full frames: the nearest active body at each converged point
+    phi_min, body = torch.min(rm.scene_sdf(lib, states, params, x[:, 0])[0], dim=-1)
+    hit = (phi_min < HIT_EPS * 4) & short[:, 0]
+    full = (torch.nn.functional.one_hot(body, N) * hit[..., None]).sum(dim=1)
+    # solo frames: body i alone
+    phi_i = _body_phi(lib, states.pos[:, :, None], states.quat[:, :, None],
+                      params.scale[:, :, None], params.shape_id[:, :, None], x[:, 1:])
+    alone = ((phi_i < HIT_EPS * 4) & short[:, 1:] & states.active[..., None]).sum(dim=-1)
+    return full, alone
+
+
+def visibility_counts(lib: ShapeLib, states: SceneState, params: SceneParams, K, cams,
+                      H: int, W: int, zfar: float = 3.0, n_steps: int = 64):
+    """Each body's pixel count in its scene's (H, W) frame and alone: ((B,
+    N), (B, N)).  The B full frames and the B x N solo frames are marched
+    with no env boxes, as the data generator calls JAX's
+    ``visibility_ratio`` (the bin never occludes in this label), as one
+    batch of B (N + 1) scenes in one ``march_frames`` call (one K2 launch
+    on the GPU)."""
+    dev = states.pos.device
+    K = torch.as_tensor(K, dtype=torch.float32, device=dev)
+    cams = torch.as_tensor(cams, dtype=torch.float32, device=dev)
+    st, par, cams_r = visibility_scenes(states, params, cams)
+    t, d_cam, tmax = march_frames(lib, st, par, K, cams_r, H, W, zfar=zfar, n_steps=n_steps)
+    return pixel_counts(lib, states, params, cams, d_cam, tmax, t)
+
+
+def visibility_ratio_batch(lib: ShapeLib, states: SceneState, params: SceneParams, K, cams,
+                           H: int, W: int, **kw) -> torch.Tensor:
+    """Per-body visibility (B, N): pixels visible in the full scene / pixels
+    visible alone, the occlusion-ratio label of the reference's
+    ``tool.py:229-275``, over ``visibility_counts``."""
+    full, alone = visibility_counts(lib, states, params, K, cams, H, W, **kw)
+    return full.float() / torch.clamp(alone, min=1).float()
+
+
+def visibility_ratio(lib: ShapeLib, state: SceneState, params: SceneParams, K, cam_in_world,
+                     H: int, W: int, **kw) -> torch.Tensor:
+    """One scene's per-body visibility (N,): the one-scene case of
+    ``visibility_ratio_batch``."""
+    cam = torch.as_tensor(cam_in_world, dtype=torch.float32, device=state.pos.device)
+    return visibility_ratio_batch(lib, as_batch(state), as_batch(params), K, cam[None], H, W,
+                                  **kw)[0]

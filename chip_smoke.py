@@ -80,7 +80,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    nets' own; K1 held against its plain version on the round's
    NOCS-transfer gate and K2 on its frame; each net's device time a call
    at full width, with its multiply-adds; and the seg net's bf16 forward on
-   the card held against the same module on the CPU, on the round's cloud;
+   the card held against the same module on the CPU, on the round's cloud,
+   and its U-Net's two grid forms bit for bit;
 13. grasp-DB generation: one nut instance through ``generate_complete_grasps``
    at ``config_grasp.yml``'s settings (42,700 cone poses through the
    filter, up to 4,096 candidates x 50 perturbations, 12,800 rollouts of 100
@@ -94,16 +95,37 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    against the stored scores (Spearman >= 0.90, mean |diff| <= 0.07, means
    within 0.03); one grid chunk on ``assets/nut_demo.obj``, twice, the same
    candidates and scores both times;
-14. a ``grasp_db`` and a ``kernels`` JSON line, the card line, then
-   ``{"ok": true, ...}``.
+14. training data and training: ``generate_scenes`` makes 64 nut train
+   scenes in 4 batches of 16 at full width (386x516 frames, 1-10 bodies a
+   pile, 400 settle steps, the visibility at 96x129) with every launch
+   count set to 0 just before and read just after (2 K2 launches a batch:
+   the 16 frames, then the 16 x 11 visibility frames); the stage times,
+   scenes a second and the bodies active after the settle; K2 held against
+   its plain version on one batch's own two launches (on the frames seg on
+   > 99.5% of pixels and on >= 99% of those where either side sees a body,
+   the same bodies seen in every scene, depth within 2e-3 m; per-body pixel counts
+   within 0.5% on the visibility frames), with times and bounds; every file
+   through the port's ``load_scene``; ``pack_split`` with the 12 nut grasp
+   DBs; then each net (seg: 4 scenes of 20,000 points at 96x96x48 x 2 mm;
+   NUNOCS: 34 x 8,192 points; grasp: 240 x 2,048, dropout 0.4) trained on
+   the packed rows through ``Trainer.fit`` for 1 epoch or 20 steps,
+   whichever is fewer: the predicter's load of its ``best_train.ckpt``
+   against the trained module, ms a step (CUDA events), samples/s, peak
+   memory, launches and busy share over 10 profiled steps, no host wait in
+   a step, a ``last.ckpt`` resumed in a fresh state giving the same next
+   loss, and the loss falling over 20 steps on one repeated batch;
+15. a ``grasp_db``, a ``training`` and a ``kernels`` JSON line, the card
+   line, then ``{"ok": true, ...}``.
 
 It imports nothing of the JAX package.  Without a GPU it exits non-zero
 before printing any result.
 """
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -436,6 +458,41 @@ _STEP_OPS = 11  # ray point (3 FMA) and the step update
 _MARCH_VARIANTS = [(8, 8), (8, 16), (16, 8), (16, 16), (8, 32), (32, 8), (1, 256)]
 
 
+def march_need_batch(rm, lib, st, par, o_w, d_w, tmax, n_steps, hit_eps, env=None):
+    """Operations a batch of scenes needs, all scenes at once: at each step
+    of each ray until it converges (step counts from the plain march's
+    rule), the bodies whose bounding sphere (radius + 1e-3) the ray's line
+    meets and the enabled env boxes.  Returns (the count, the steps each ray
+    evaluates (B, P), each body's ops (B, N), the fixed ops of a step)."""
+    B, P = st.pos.shape[0], d_w.shape[0]
+    t = torch.full((B, P), 0.05, device=d_w.device)
+    done = torch.zeros((B, P), dtype=torch.bool, device=d_w.device)
+    evals = torch.zeros((B, P), dtype=torch.float64, device=d_w.device)
+    for _ in range(n_steps):
+        evals += (~done).double()
+        x = o_w + t[..., None] * d_w
+        phi = torch.amin(rm.scene_sdf(lib, st, par, x)[0], dim=-1)
+        if env is not None:
+            phi = torch.minimum(phi, rm.env_sdf(env, x))
+        newly = phi < hit_eps
+        t = torch.where(done | newly, t, torch.minimum(t + torch.clamp(phi, min=hit_eps / 2),
+                                                       tmax))
+        done = done | newly | (t >= tmax)
+    types = lib.csg.types[par.shape_id]
+    body_ops = torch.full(types.shape[:2], float(_BODY_OPS), dtype=torch.float64,
+                          device=d_w.device)
+    for code, ops in _SLOT_OPS.items():
+        body_ops += (types == code).sum(dim=-1).double() * ops
+    radius_w = lib.radius[par.shape_id] * par.scale
+    c = st.pos - o_w  # (B, N, 3)
+    along = torch.einsum("pk,bnk->bpn", d_w, c)
+    perp2 = (c * c).sum(dim=-1)[:, None] - along * along
+    meets = (perp2 <= ((radius_w + 1e-3) ** 2)[:, None]) & st.active[:, None]
+    fixed = _STEP_OPS + (_ENV_OPS * int(env.enabled.sum()) if env is not None else 0)
+    need = float((evals * ((meets.double() * body_ops[:, None]).sum(dim=-1) + fixed)).sum())
+    return need, evals, body_ops, fixed
+
+
 def march_work(rm, lib, state, params, o_w, d_w, tmax, env, n_steps, hit_eps, hw):
     """Operations this run's data needs.  Each ray evaluates the scene at
     every step until it converges (step counts from the plain march's rule);
@@ -444,31 +501,13 @@ def march_work(rm, lib, state, params, o_w, d_w, tmax, env, n_steps, hit_eps, hw
     conservative cull can leave; ``strip`` the bodies the cull of the ray's
     256-ray strip keeps (the tile of the kernel's first design), ``tile``
     those the cull of the kernel's own tile keeps."""
+    from catgrasp_tpu_torch.sim.types import as_batch
     P = d_w.shape[0]
-    t = torch.full((P,), 0.05, device=d_w.device)
-    done = torch.zeros((P,), dtype=torch.bool, device=d_w.device)
-    evals = torch.zeros((P,), dtype=torch.float64, device=d_w.device)
-    for _ in range(n_steps):
-        evals += (~done).double()
-        x = o_w + t[:, None] * d_w
-        phi = torch.minimum(torch.amin(rm.scene_sdf(lib, state, params, x)[0], dim=-1),
-                            rm.env_sdf(env, x))
-        newly = phi < hit_eps
-        t = torch.where(done | newly, t, torch.minimum(t + torch.clamp(phi, min=hit_eps / 2),
-                                                       tmax))
-        done = done | newly | (t >= tmax)
-    types = lib.csg.types[params.shape_id]
-    body_ops = torch.full(types.shape[:1], float(_BODY_OPS), dtype=torch.float64,
-                          device=d_w.device)
-    for code, ops in _SLOT_OPS.items():
-        body_ops += (types == code).sum(dim=-1).double() * ops
-    fixed = _STEP_OPS + _ENV_OPS * int(env.enabled.sum())
+    need, evals, body_ops, fixed = march_need_batch(rm, lib, as_batch(state), as_batch(params),
+                                                    o_w, d_w, tmax, n_steps, hit_eps, env)
+    evals, body_ops = evals[0], body_ops[0]
     radius_w = lib.radius[params.shape_id] * params.scale
-    c = state.pos - o_w
-    along = d_w @ c.T  # (P, N)
-    perp2 = (c * c).sum(dim=-1) - along * along
-    meets = (perp2 <= (radius_w + 1e-3) ** 2) & state.active
-    work = {"need": float((evals * (meets.double() @ body_ops + fixed)).sum())}
+    work = {"need": need}
     for key, tile in (("strip", (1, rm.TILE)), ("tile", None)):
         geo = (None, tile) if key == "strip" else (hw, None)
         visidx, visn = rm.tile_visibility(o_w, d_w, state.pos, radius_w, state.active, *geo)
@@ -1342,7 +1381,9 @@ def learned_round(dev):
     round of the eval in learned perception through ``eval_round`` (K1 and
     K2 held on its own gate and frame), the nets' stage times; then each
     net's device time a call at full width on the round's own inputs, and
-    the seg net's card forward against the same module on the CPU.
+    the seg net's card forward against the same module on the CPU, and its
+    U-Net on the net's contiguous grid against the unsqueezed one-scene
+    view, bit for bit.
     Returns (launches, the round's record, the nets' record)."""
     import copy
 
@@ -1437,6 +1478,21 @@ def learned_round(dev):
     if d_max > 2e-3 or d_99 > 5e-4 or signs < 0.995:
         fail("learned round: the seg net on the card disagrees with its CPU forward")
     rec["seg_vs_cpu"] = {"max_abs_err": d_max, "p99_abs_err": d_99, "sign_agree": signs}
+
+    # the U-Net's input layout: the contiguous (1, C, D, H, W) grid the net
+    # builds against the unsqueezed one-scene view grid.permute(3, 0, 1,
+    # 2)[None] (NCDHW conv kernels too), on the round's grid
+    from catgrasp_tpu_torch.nn.voxelnet import voxelize
+    with torch.inference_mode():
+        grid, _ = voxelize(xyz[None], nrm[None], origin[None], seg.voxel_size, seg.grid_dims)
+        u_batch = seg.VoxelUNet_0(grid.permute(0, 4, 1, 2, 3).contiguous())
+        u_view = seg.VoxelUNet_0(grid[0].permute(3, 0, 1, 2)[None])
+    same = torch.equal(u_batch, u_view)
+    print(f"seg net U-Net on the learned round's grid: the batch's contiguous grid gives the "
+          f"unsqueezed one-scene view's features bit for bit: {same}", flush=True)
+    if not same:
+        fail("learned round: the seg net's grid layout changed its conv kernels")
+    rec["unet_layout_bit_equal"] = same
     return launches, out, rec
 
 
@@ -1606,6 +1662,325 @@ def grasp_db_phase(dev):
     return launches, record
 
 
+# --------------------------------------------------------------------------
+# training data and training
+# --------------------------------------------------------------------------
+
+N_DATA_SCENES = 64  # 4 batches of 16
+SCENE_BATCH = 16
+
+
+def march_batch_check(label, rm, mlib, st, par, d_cam, tmax, hw, agree_fn):
+    """K2 against its plain version on a camera-frame scene batch (the data
+    generator's launch): ``agree_fn(t_kernel, t_plain)`` prints and checks
+    the agreement and returns its record; then the kernel's and the plain
+    march's times and the bound from the bodies each ray's line meets, over
+    every scene of the batch."""
+    from catgrasp_tpu_torch.render import raymarch
+    zero = torch.zeros(3, device=d_cam.device)
+    kw = dict(n_steps=64, hit_eps=raymarch.HIT_EPS)
+
+    def call():
+        return rm.march_csg_batch(mlib, st, par, zero, d_cam, tmax, hw=hw, **kw)
+
+    def plain():
+        return rm.march_csg_plain(mlib, st, par, zero, d_cam, tmax, **kw)
+
+    t_k, t_p = call(), plain()
+    torch.cuda.synchronize()
+    if not torch.isfinite(t_k).all():
+        fail(f"march_csg [{label}] returned non-finite t")
+    rec = agree_fn(t_k, t_p)
+    ms, wrapper_ms, how = timed(call, "march_csg_kernel")
+    plain_ms = cuda_ms(plain, 1, warm_up=False)
+    B, P = t_k.shape
+    need = march_need_batch(rm, mlib, st, par, zero, d_cam, tmax, 64, raymarch.HIT_EPS)[0]
+    nbytes = P * (12 + 4) + B * P * 4  # the rays and tmax read, t written
+    bound, bound_by = bound_of(need, nbytes)
+    rec.update(ms=ms, wrapper_ms=wrapper_ms, timing=how, plain_ms=plain_ms, bound_ms=bound,
+               bound_by=bound_by, ops=need, bytes=nbytes,
+               shapes=f"{B} scenes x {hw[0]}x{hw[1]} rays ({P}), {st.pos.shape[1]} bodies a "
+                      f"scene, 64 steps")
+    print(f"K2 march_csg [{label}]: {rec['shapes']}; kernel {ms:.4f} ms ({how}), wrapper "
+          f"{wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms; bound {bound:.4f} ms, {bound_by} "
+          f"({need:.3e} ops: the bodies each ray's line meets; {nbytes:.3e} bytes)", flush=True)
+    return rec
+
+
+def training_data_phase(dev, work: str):
+    """Training data at full width: ``generate_scenes`` makes 64 nut train
+    scenes in 4 batches of 16 (386x516 frames, 400 settle steps, the
+    visibility at 96x129) with every launch count set to 0 just before and
+    read just after; K2 held against its plain version on one batch's own
+    two launches (the 16 frames; the 16 x 11 visibility frames); every
+    file loaded by the port's ``load_scene``; ``pack_split`` with the 12 nut
+    grasp DBs.  Returns (launches, record, the packed directory)."""
+    import glob
+
+    from catgrasp_tpu_torch.config.loader import load_config
+    from catgrasp_tpu_torch.data import labels, packed
+    from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
+    from catgrasp_tpu_torch.pipelines import generate_pile_data as gpd
+    from catgrasp_tpu_torch.pipelines import pack_training_data as ptd
+    from catgrasp_tpu_torch.render import raymarch
+    from catgrasp_tpu_torch.sim import engine, env_pile
+
+    cfg = load_config("config.yml")
+    K, H, W = gpd.frame_geometry(cfg)
+    out = os.path.join(work, "train")
+    timings = {}
+    collision.box_hits.launches = 0
+    render_march.march_csg.launches = 0
+    fused_rollout.rollout_fused.launches = 0
+    t0 = time.perf_counter()
+    gpd.generate_scenes("nut", "train", N_DATA_SCENES, out, cfg=cfg, batch=SCENE_BATCH,
+                        device=dev, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"box_hits": collision.box_hits.launches,
+                "march_csg": render_march.march_csg.launches,
+                "rollout_fused": fused_rollout.rollout_fused.launches}
+    n_batches = N_DATA_SCENES // SCENE_BATCH
+    print(f"training data: {N_DATA_SCENES} nut train scenes at {H}x{W} (visibility at "
+          f"{H // gpd.VIS_DOWNSCALE}x{W // gpd.VIS_DOWNSCALE}), {n_batches} batches of "
+          f"{SCENE_BATCH}, 400 settle steps: {wall:.2f} s, {N_DATA_SCENES / wall:.3f} scenes/s "
+          f"(each stage ends in a synchronise); stages s {json.dumps(timings)} (write_s: the "
+          f"writer threads, beside the device's work); launches {json.dumps(launches)}, "
+          f"{launches['march_csg'] / n_batches:.1f} K2 launches a batch", flush=True)
+    if launches != {"box_hits": 0, "march_csg": 2 * n_batches, "rollout_fused": 0}:
+        fail(f"training data: launches {launches}, expected 2 K2 launches a batch and "
+             f"nothing else")
+
+    files = sorted(glob.glob(os.path.join(out, "*.npz")))
+    if len(files) != N_DATA_SCENES:
+        fail(f"training data: {len(files)} scene files, expected {N_DATA_SCENES}")
+    n_active, vis_all, seg_bodies = [], [], 0
+    for f in files:
+        sc = labels.load_scene(f)
+        ok = (sc["depth"].shape == (H, W) and sc["seg"].dtype == np.int32
+              and sc["xyz"].shape == (H, W, 3) and sc["nocs"].shape == (H, W, 3)
+              and sc["rgb"].dtype == np.uint8 and np.isfinite(sc["depth"]).all()
+              and np.isfinite(sc["vis_ratio"]).all() and sc["ob_in_world"].shape == (10, 4, 4))
+        if not ok:
+            fail(f"training data: {f} does not load as a scene record")
+        n_active.append(int(sc["active"].sum()))
+        vis_all.append(sc["vis_ratio"][sc["active"]])
+        seg_bodies += len(set(np.unique(sc["seg"]).tolist()) - {-2, -1})
+    vis_all = np.concatenate(vis_all)
+    print(f"training data: all {len(files)} files load through load_scene; bodies active "
+          f"after the settle {sum(n_active)} (mean {np.mean(n_active):.2f} a scene, of 1-10 "
+          f"dropped); bodies seen in the frames {seg_bodies}; visibility of the active bodies: "
+          f"mean {vis_all.mean():.3f}, >= 0.8 for {(vis_all >= 0.8).mean():.3f}, max "
+          f"{vis_all.max():.3f}", flush=True)
+    if sum(n_active) == 0 or seg_bodies == 0 or (vis_all < 0).any():
+        fail("training data: no body in the piles or the frames")
+
+    # K2 on the first batch's own inputs: the same seed and draws
+    lib = gpd.category_lib("nut", "train", device=dev)
+    pile = gpd.pile_config(cfg)
+    env = engine.StaticEnv.open_bin(pile.bin_inner, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    states, params, cams = gpd.draw_batch(gen, lib, pile, SCENE_BATCH, K, (H, W))
+    states = env_pile.settle_fixed(states, params, lib, env, pile, 400)
+    first = [int(a) for a in states.active.sum(dim=1).tolist()]
+    print(f"training data: batch 0 again (same seed) has active bodies {first}, the files "
+          f"{n_active[:SCENE_BATCH]}", flush=True)
+    Kt = torch.as_tensor(K, device=dev)
+    eye = torch.eye(4, device=dev)
+    _, d_cam, _, tmax = raymarch.camera_rays(Kt, eye, H, W)
+    mlib, st, par = raymarch.camera_frame_scenes(lib, states, params, cams, env)
+
+    def frames_agree(t_k, t_p):
+        out_k = raymarch.shade_frames(lib, states, params, cams, H, W, env, d_cam, tmax, t_k)
+        out_p = raymarch.shade_frames(lib, states, params, cams, H, W, env, d_cam, tmax, t_p)
+        seg_k, seg_p = out_k["seg"], out_p["seg"]
+        same = seg_k == seg_p
+        agree = float(same.float().mean())
+        bodies = (seg_k >= 0) | (seg_p >= 0)
+        agree_bodies = float(same[bodies].float().mean())
+        err = float((out_k["depth"] - out_p["depth"])[same & (seg_p != -1)].abs().max())
+        seen_same = all(set(seg_k[b].unique().tolist()) == set(seg_p[b].unique().tolist())
+                        for b in range(seg_k.shape[0]))
+        print(f"K2 on the data path's 16 frames: seg agrees on {agree:.6f} of pixels and on "
+              f"{agree_bodies:.6f} of the {int(bodies.sum())} pixels where either side sees a "
+              f"body, depth max |err| {err:.3e} m where it agrees, the same bodies seen in "
+              f"every scene: {seen_same} (limits > 0.995, >= 0.99, <= 2e-3, True)", flush=True)
+        if agree <= 0.995 or agree_bodies < 0.99 or err > 2e-3 or not seen_same:
+            fail("march_csg on the data path's frames disagrees with its plain version")
+        return {"seg_agree": agree, "seg_agree_bodies": agree_bodies, "max_abs_err": err,
+                "bodies_seen_equal": seen_same}
+
+    k2_frames = march_batch_check("data path, 16 frames", render_march, mlib, st, par, d_cam,
+                                  tmax, (H, W), frames_agree)
+
+    Hv, Wv = H // gpd.VIS_DOWNSCALE, W // gpd.VIS_DOWNSCALE
+    Kv = Kt.clone()
+    Kv[:2] /= gpd.VIS_DOWNSCALE
+    _, dv, _, tv = raymarch.camera_rays(Kv, eye, Hv, Wv)
+    st2, par2, cams2 = raymarch.visibility_scenes(states, params, cams)
+    mlib2, stc, parc = raymarch.camera_frame_scenes(lib, st2, par2, cams2)
+
+    def solos_agree(t_k, t_p):
+        res = {}
+        for which, ck, cp in zip(("full", "alone"),
+                                 raymarch.pixel_counts(lib, states, params, cams, dv, tv, t_k),
+                                 raymarch.pixel_counts(lib, states, params, cams, dv, tv, t_p)):
+            diff = int((ck - cp).abs().sum())
+            total = int(cp.sum())
+            res[which] = {"pixels": total, "abs_diff": diff,
+                          "max_body_diff": int((ck - cp).abs().max())}
+        print(f"K2 on the data path's visibility frames: per-body pixel counts kernel vs plain "
+              f"{json.dumps(res)} (limit: the summed |diff| <= 0.5% of the pixels)", flush=True)
+        if any(r["abs_diff"] > 0.005 * max(r["pixels"], 1) for r in res.values()):
+            fail("march_csg on the visibility frames disagrees with its plain version")
+        return {"counts": res, "max_abs_err": max(r["abs_diff"] / max(r["pixels"], 1)
+                                                  for r in res.values())}
+
+    k2_solos = march_batch_check("data path, 16 x 11 visibility frames", render_march, mlib2,
+                                 stc, parc, dv, tv, (Hv, Wv), solos_agree)
+
+    packed_dir = os.path.join(work, "packed_train")
+    dbs = ptd.load_grasp_dbs("nut", db_dir=os.path.join(REPO, "dataset", "grasps"))
+    if len(dbs) != 12:
+        fail(f"training data: {len(dbs)} nut grasp DBs, expected 12")
+    need = {"n_seg": 4, "n_nunocs": 34, "n_grasp_keys": 240}  # a full batch of each net
+    n_scenes = N_DATA_SCENES
+    while True:
+        t1 = time.perf_counter()
+        meta = packed.pack_split(out, packed_dir, grasp_db=dbs, seed=0, log_every=0)
+        pack_s = time.perf_counter() - t1
+        print(f"pack_split of {meta['n_scenes']} scenes with {len(dbs)} grasp DBs: "
+              f"{pack_s:.2f} s; {json.dumps(meta)}", flush=True)
+        short = [k for k, v in need.items() if meta[k] < v]
+        if not short:
+            break
+        if n_scenes >= 4 * N_DATA_SCENES:
+            fail(f"training data: fewer rows than one batch of {short} from {n_scenes} scenes")
+        print(f"training data: fewer rows than a batch of {short}; 64 more scenes", flush=True)
+        gpd.generate_scenes("nut", "train", n_scenes + N_DATA_SCENES, out, cfg=cfg,
+                            batch=SCENE_BATCH, start=n_scenes, device=dev)
+        n_scenes += N_DATA_SCENES
+    record = {"scenes": N_DATA_SCENES, "wall_s": wall, "scenes_per_s": N_DATA_SCENES / wall,
+              "stages_s": timings, "k2_launches_a_batch": launches["march_csg"] / n_batches,
+              "active_bodies": sum(n_active), "pack": meta, "pack_s": pack_s,
+              "k2_frames": k2_frames, "k2_visibility": k2_solos}
+    return launches, record, packed_dir
+
+
+def training_phase(dev, packed_dir: str, work: str) -> dict:
+    """Each net trained on the packed rows at its config's widths and
+    batch (seg 4 scenes of 20,000 points at 96x96x48 x 2 mm, NUNOCS 34 x
+    8,192, grasp 240 x 2,048 with dropout 0.4) through ``Trainer.fit`` for 1
+    epoch or 20 steps, whichever is fewer; then the predicter's load of its
+    ``best_train.ckpt`` against the trained module; ms a step (CUDA events),
+    samples/s, peak memory, launches and busy share over 10 profiled steps,
+    no host wait in a step, a ``last.ckpt`` resumed in a fresh state giving
+    the next step's loss, and the loss over 20 steps on one repeated batch."""
+    from itertools import islice
+
+    from catgrasp_tpu_torch.config.loader import load_config
+    from catgrasp_tpu_torch.data import packed
+    from catgrasp_tpu_torch.pipelines import train_grasp, train_nunocs, train_seg
+    from catgrasp_tpu_torch.predict.artifacts import load_predicters
+    from catgrasp_tpu_torch.train import trainer as T
+
+    art = os.path.join(work, "artifacts")
+    nets = {
+        "seg": (load_config("config_seg.yml"), lambda c: train_seg.build(c), packed.PackedSeg),
+        "nunocs": (load_config("config_nunocs.yml"), lambda c: train_nunocs.build(c, "nut"),
+                   packed.PackedNunocs),
+        "grasp": (load_config("config_grasp.yml"), train_grasp.build, packed.PackedGrasp)}
+    nets["seg"][0]["batch_size"] = 4  # train_seg's command-line default
+    record = {}
+    for net, (cfg, build, data) in nets.items():
+        torch.cuda.empty_cache()
+        bs = cfg["batch_size"]
+        ds = data(packed_dir, cfg)
+        spe = max(len(ds) // bs, 1)
+        n_steps = min(len(ds) // bs, 20)
+        model, loss_fn = build(cfg)
+        state = T.create_state(model, cfg, spe, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = T.Trainer(model=model, cfg=cfg, loss_fn=loss_fn,
+                            train_data=lambda: islice(ds.batches(bs), n_steps),
+                            ckpt_dir=os.path.join(art, net))
+        t0 = time.perf_counter()
+        state = trainer.fit(state, n_epochs=1, log_every=n_steps, verbose=False)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        host = list(islice(ds.batches(bs), 2))
+        b0, b1 = (T.to_device(b, dev) for b in host)
+
+        # the predicter on the run's best_train.ckpt against the trained module
+        role = {"nunocs": "nocs"}.get(net, net)
+        pred = load_predicters(art, "nut", device=dev)[role].model
+        with torch.no_grad():
+            if net == "seg":
+                xyz, nrm = b0["xyz"][0], b0["normal"][0]
+                origin = xyz.amin(dim=0) - 0.01
+                mine, theirs = state.model(xyz, nrm, origin), pred(xyz, nrm, origin)
+            else:
+                mine, theirs = state.model(b0["x"])[:1], pred(b0["x"])[:1]
+        pred_err = max(float((a - b).abs().max()) for a, b in zip(mine, theirs))
+
+        step = T.make_train_step(loss_fn)
+        ms = cuda_ms(lambda: step(state, b0), 10)
+        busy = device_profile(f"10 {net} training steps",
+                              lambda: [step(state, b0) for _ in range(10)], 10 * ms / 1e3)
+        no_host_waits(f"a {net} training step (the batch's copy to the device included)",
+                      lambda: step(state, T.to_device(host[0], dev)))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+
+        # last.ckpt resumed in a fresh state gives the same next step
+        path = os.path.join(art, net, "last.ckpt")
+        T.save_checkpoint(path, state, 0)
+        rng = torch.cuda.get_rng_state()
+        _, l_cont, _ = step(state, b1)
+        fresh = T.create_state(build(cfg)[0], cfg, spe, device=dev)
+        fresh, _ = T.load_checkpoint(path, fresh)
+        torch.cuda.set_rng_state(rng)
+        _, l_res, _ = step(fresh, b1)
+        p_cont = next(state.model.parameters())
+        p_res = next(fresh.model.parameters())
+        resume_err = abs(float(l_cont) - float(l_res))
+        param_err = float((p_cont - p_res).abs().max())
+        del fresh
+
+        # the loss over 20 steps on one repeated batch, from a fresh start
+        model3, _ = build(cfg)
+        s3 = T.create_state(model3, cfg, spe, device=dev)
+        with torch.no_grad():
+            l_before = float(loss_fn(s3.model, b0, False)[0])
+        for _ in range(20):
+            step(s3, b0)
+        with torch.no_grad():
+            l_after = float(loss_fn(s3.model, b0, False)[0])
+        del s3, model3
+        rec = {"batch": bs, "rows": len(ds), "fit_steps": n_steps, "fit_s": fit_s,
+               "ms_a_step": ms, "samples_per_s": bs / ms * 1e3, "peak_mib": peak,
+               "launches_a_step": busy["launches"] / 10, "busy_share": busy["busy_share"],
+               "predicter_max_abs_err": pred_err, "resume_loss_diff": resume_err,
+               "resume_param_diff": param_err, "loss_repeated_batch": [l_before, l_after]}
+        record[net] = rec
+        print(f"training [{net}] batch {bs}, {len(ds)} rows: fit of {n_steps} steps "
+              f"{fit_s:.2f} s; a step {ms:.3f} ms (CUDA events), {rec['samples_per_s']:.1f} "
+              f"samples/s, peak {peak:.1f} MiB, {rec['launches_a_step']:.0f} launches a step, "
+              f"busy {100 * busy['busy_share']:.1f}%; predicter on best_train.ckpt max |diff| "
+              f"{pred_err:.3e}; resumed last.ckpt: next-step loss {float(l_res):.6f} vs "
+              f"{float(l_cont):.6f} in process (|diff| {resume_err:.3e}, params after it "
+              f"{param_err:.3e}); loss on one batch repeated 20 steps {l_before:.5f} -> "
+              f"{l_after:.5f}", flush=True)
+        if pred_err > 1e-5:
+            fail(f"training [{net}]: the predicter's forward differs from the trained module's")
+        if resume_err > 1e-5 * max(1.0, abs(float(l_cont))):
+            fail(f"training [{net}]: the resumed last.ckpt gives another next step")
+        if not l_after < l_before:
+            fail(f"training [{net}]: the loss did not fall on a repeated batch")
+        del state, model, b0, b1
+    return record
+
+
 def no_host_waits(label: str, fn) -> None:
     """Call ``fn`` once to warm it up, then again under
     ``torch.cuda.set_sync_debug_mode("warn")``: fail if any operation in it
@@ -1698,7 +2073,20 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
+    work = tempfile.mkdtemp(prefix="catgrasp_smoke_")
+    try:
+        run_all(dev, logs, card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}), flush=True)
 
+
+def run_all(dev, logs, card, work) -> None:
+    """Every phase, then the ``nets``, ``grasp_db``, ``training`` and
+    ``kernels`` lines."""
     check_box_hits_variants(dev)
     k1_random = check_box_hits(dev)
     scene, state, params, launches, times = main_path(dev)
@@ -1761,6 +2149,8 @@ def main() -> None:
     bench_launches, at_bench = bench_path(dev)
     learned_launches, learned, nets = learned_round(dev)
     db_launches, grasp_db = grasp_db_phase(dev)
+    td_launches, tdata, packed_dir = training_data_phase(dev, work)
+    training = training_phase(dev, packed_dir, work)
 
     from catgrasp_tpu_torch.ops import render_march
     k1_bound, k1_by = bound_of(k1["ops"], k1["bytes"])
@@ -1806,6 +2196,7 @@ def main() -> None:
          "launches_learned_round": learned_launches["box_hits"],
          "at_nocs_gate_learned": nocs_gate_row("learned round", "nut", learned["k1"]),
          "launches_grasp_db": db_launches["box_hits"],
+         "launches_training_data": td_launches["box_hits"],
          "at_grasp_db_gate": {
              "shapes": f"the grasp DB's collision gate on nut/train/0's own inputs: "
                        f"P={grasp_db['k1']['P']}; the 200-point object cloud (3 open boxes) "
@@ -1841,7 +2232,16 @@ def main() -> None:
          "launches_learned_round": learned_launches["march_csg"],
          "launches_grasp_db": db_launches["march_csg"],
          "at_learned_round": {k: learned["k2"][k] for k in (
-             "shapes", "seg_agree", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}},
+             "shapes", "seg_agree", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "launches_training_data": td_launches["march_csg"],
+         "at_training_data": {
+             "frames": {k: tdata["k2_frames"][k] for k in (
+                 "shapes", "seg_agree", "seg_agree_bodies", "bodies_seen_equal",
+                 "max_abs_err", "ms", "wrapper_ms", "timing", "plain_ms", "bound_ms",
+                 "bound_by")},
+             "visibility": {k: tdata["k2_visibility"][k] for k in (
+                 "shapes", "counts", "max_abs_err", "ms", "wrapper_ms", "timing", "plain_ms",
+                 "bound_ms", "bound_by")}}},
         {"name": "rollout_fused", "route": "cuda",
          "source": "catgrasp_tpu_torch/csrc/fused_rollout.cu",
          "replaces": "catgrasp_tpu/ops/fused_rollout.py:531",
@@ -1854,6 +2254,7 @@ def main() -> None:
          "launches_grid_round": grid_launches["rollout_fused"],
          "launches_learned_round": learned_launches["rollout_fused"],
          "launches_grasp_db": db_launches["rollout_fused"],
+         "launches_training_data": td_launches["rollout_fused"],
          "max_abs_err": k3["max_abs_err"], "within_tol_frac": k3["within_tol_frac"],
          "ms": k3["ms"], "wrapper_ms": k3["wrapper_ms"], "prepare_ms": k3["prepare_ms"],
          "timing": k3["timing"], "plain_ms": k3["plain_ms"], "engine_ms": k3["engine_ms"],
@@ -1863,11 +2264,10 @@ def main() -> None:
     ]
     print(json.dumps({"nets": nets}), flush=True)
     print(json.dumps({"grasp_db": {k: v for k, v in grasp_db.items() if k != "k1"}}), flush=True)
+    print(json.dumps({"training": {"data": {k: v for k, v in tdata.items()
+                                            if not k.startswith("k2_")},
+                                   "nets": training}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu",
-                                             "kind": torch.cuda.get_device_name(0),
-                                             "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -80,3 +80,47 @@ def test_decoder_matches_msgpack():
         ckpt.unpackb(msgpack.packb(obj, use_bin_type=True)[:-3])
     with pytest.raises(ValueError, match="ext type 5"):
         ckpt.unpackb(msgpack.packb(msgpack.ExtType(5, b"abcd")))
+
+
+@pytest.mark.parametrize("path", CKPTS, ids=lambda p: "-".join(p.split("/")[1:3]))
+def test_writer_reencodes_flax_bytes(path):
+    """The port's encoder writes the tracked checkpoints' bytes back from
+    what its reader reads: the outer map and the params blob."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    blob = ckpt.unpackb(raw)
+    assert ckpt.packb(ckpt.unpackb(blob["params"])) == blob["params"]
+    assert ckpt.packb(blob) == raw
+
+
+def test_writer_round_trips_through_reader_and_flax(tmp_path):
+    """Every type the encoder writes, read back by the port's reader, by
+    ``flax.serialization.msgpack_restore`` and by the msgpack package; the
+    integers in msgpack's own smallest forms."""
+    arrs = [np.arange(n, dtype=np.float32).reshape(-1, 1) for n in (1, 3, 40, 20000)]
+    obj = {"ints": [0, 127, 128, 255, 256, 65535, 65536, 2 ** 32, 2 ** 63, -1, -32, -33, -128,
+                    -129, -32768, -32769, -2 ** 31 - 1],
+           "floats": [1.5, -2.25e300], "none": None, "flags": [True, False],
+           "strs": ["", "a" * 31, "b" * 32, "c" * 300, "d" * 70000],
+           "bins": [b"", b"x" * 300, b"y" * 70000], "long": list(range(20)),
+           "map16": {f"k{i}": i for i in range(20)},
+           "arrays": {str(i): a for i, a in enumerate(arrs)},
+           "dtypes": {d: np.ones((2, 3), d) for d in ("float16", "int32", "int64", "bool",
+                                                      "uint8", "float64")},
+           "count": np.asarray(7, np.int32), "scalar": np.int64(-7)}
+    data = ckpt.packb(obj)
+    for other in ("ints", "floats", "none", "flags", "strs", "bins", "long", "map16"):
+        assert ckpt.packb(obj[other]) == msgpack.packb(obj[other], use_bin_type=True), other
+    back = ckpt.unpackb(data)
+    flax_back = serialization.msgpack_restore(data)
+    for out in (back, flax_back):
+        for k in ("ints", "floats", "none", "flags", "strs", "bins", "long", "map16"):
+            assert out[k] == obj[k], k
+        for k, a in obj["arrays"].items():
+            assert out["arrays"][k].dtype == a.dtype and np.array_equal(out["arrays"][k], a)
+        for k, a in obj["dtypes"].items():
+            assert out["dtypes"][k].dtype == a.dtype and np.array_equal(out["dtypes"][k], a)
+        assert out["count"].shape == () and out["count"].dtype == np.int32 and out["count"] == 7
+        assert out["scalar"] == -7 and isinstance(out["scalar"], np.int64)
+    with pytest.raises(TypeError):
+        ckpt.packb({"x": object()})

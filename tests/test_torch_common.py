@@ -116,3 +116,15 @@ def random_poses(rng, n: int, spread: float = 0.08) -> np.ndarray:
     T[:, :3, 3] = rng.uniform(-spread, spread, (n, 3))
     T[:, 3, 3] = 1.0
     return T
+
+
+def small_scene_cfg() -> dict:
+    """``config.yml`` with a 120x120 camera of long focal length and piles of
+    1-4 bodies: each nut covers enough pixels for the isolated-cloud and
+    grasp-label passes, at a size the CPU renders in seconds."""
+    from catgrasp_tpu_torch.config.loader import load_config
+    cfg = load_config("config.yml")
+    cfg.update(H=120, W=120, render_downscale=1.0,
+               K=[260.0, 0.0, 60.0, 0.0, 260.0, 60.0, 0.0, 0.0, 1.0])
+    cfg["dataset"] = dict(cfg["dataset"], num_pile_objects=[1, 4])
+    return cfg

@@ -15,7 +15,8 @@ from catgrasp_tpu_torch import bench, convert
 from catgrasp_tpu_torch.geom import collision_manager, csg, primitives, sdf, sdf_io
 from catgrasp_tpu_torch.grasp.gripper import Gripper
 from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
-from catgrasp_tpu_torch.pipelines import generate_grasp, make_sdf, rescore_grasp_db
+from catgrasp_tpu_torch.pipelines import (generate_grasp, generate_pile_data, make_sdf,
+                                          rescore_grasp_db, train_grasp, train_nunocs, train_seg)
 from catgrasp_tpu_torch.pipelines import run_grasp_simulation as rgs
 from catgrasp_tpu_torch.predict.artifacts import load_predicters
 from catgrasp_tpu_torch.sim import engine, env_pile
@@ -48,7 +49,14 @@ NEEDED = ("catgrasp_tpu_torch.geom.sdf", "catgrasp_tpu_torch.geom.sdf_io",
           "catgrasp_tpu_torch.predict.artifacts", "catgrasp_tpu_torch.data.augment",
           "catgrasp_tpu_torch.pipelines.generate_grasp", "catgrasp_tpu_torch.pipelines.make_sdf",
           "catgrasp_tpu_torch.pipelines.rescore_grasp_db", "catgrasp_tpu_torch.grasp.contacts",
-          "catgrasp_tpu_torch.geom.collision_manager")
+          "catgrasp_tpu_torch.geom.collision_manager",
+          "catgrasp_tpu_torch.pipelines.generate_pile_data",
+          "catgrasp_tpu_torch.pipelines.pack_training_data", "catgrasp_tpu_torch.data.labels",
+          "catgrasp_tpu_torch.data.packed", "catgrasp_tpu_torch.data.datasets",
+          "catgrasp_tpu_torch.nn.losses", "catgrasp_tpu_torch.nn.init",
+          "catgrasp_tpu_torch.train.trainer", "catgrasp_tpu_torch.utils.profiling",
+          "catgrasp_tpu_torch.pipelines.train_seg", "catgrasp_tpu_torch.pipelines.train_nunocs",
+          "catgrasp_tpu_torch.pipelines.train_grasp")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -65,13 +73,28 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_the_ports_outputs_default_to_untracked_directories():
-    """``generate_grasp`` and ``make_sdf`` write where git tracks nothing by
-    default (directories ``.gitignore`` lists), never over the JAX
-    package's DBs and grids."""
-    from catgrasp_tpu_torch.pipelines import generate_grasp, make_sdf
+    """``generate_grasp``, ``make_sdf``, the training data and the trainers
+    write where git tracks nothing by default (directories ``.gitignore``
+    lists), never over the JAX package's DBs, grids, scenes or
+    checkpoints."""
+    from catgrasp_tpu_torch.pipelines import (generate_grasp, generate_pile_data, make_sdf,
+                                              pack_training_data, train_grasp, train_nunocs,
+                                              train_seg)
+    from catgrasp_tpu_torch.train import trainer
     with open(os.path.join(REPO, ".gitignore")) as fh:
         ignored = {line.strip().rstrip("/") for line in fh if line.strip()}
-    for out in (generate_grasp.DEFAULT_OUT_DIR, make_sdf.DEFAULT_OUT_DIR):
+    import argparse
+    ckpt_dirs = []
+    for module in (train_seg, train_nunocs, train_grasp):
+        ap = argparse.ArgumentParser()
+        trainer.add_common_args(ap, module.__name__.rsplit("_", 1)[-1])
+        ckpt_dirs.append(ap.parse_args([]).ckpt_dir)
+    assert ckpt_dirs == [f"{trainer.DEFAULT_CKPT_ROOT}/{n}" for n in ("seg", "nunocs", "grasp")]
+    for path in (generate_pile_data.default_out_dir("nut", "train"),
+                 pack_training_data.default_packed_dir("nut", "train"), *ckpt_dirs):
+        assert any(path.startswith(d + "/") for d in ignored), path
+    for out in (generate_grasp.DEFAULT_OUT_DIR, make_sdf.DEFAULT_OUT_DIR,
+                generate_pile_data.DEFAULT_OUT_DIR, trainer.DEFAULT_CKPT_ROOT):
         assert out in ignored, out
         if os.path.isdir(os.path.join(REPO, ".git")):
             r = subprocess.run(["git", "ls-files", "--", out], cwd=REPO, capture_output=True,
@@ -115,6 +138,12 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
         lambda: collision_manager.CollisionManager(),
         lambda: rgs.main(["--class_name", "nut", "--n_rounds", "1", "--oracle", "0",
                           "--artifacts", os.path.join(REPO, "artifacts_tracked", "nut")]),
+        lambda: generate_pile_data.generate_scenes("nut", "train", 16, str(tmp_path)),
+        lambda: generate_pile_data.main(["--n_scenes", "16", "--out_dir", str(tmp_path)]),
+        lambda: generate_pile_data.category_lib("nut", "train"),
+        lambda: train_seg.main(["--data_root", str(tmp_path)]),
+        lambda: train_nunocs.main(["--data_root", str(tmp_path)]),
+        lambda: train_grasp.main(["--data_root", str(tmp_path)]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

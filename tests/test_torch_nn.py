@@ -167,3 +167,22 @@ def test_conv_layouts_match_flax():
             assert np.abs(unflipped - yj).max() > 0.1
     with pytest.raises(ValueError, match="unexpected kernel"):
         convert.flax_state_dict({"Conv_0": {"kernel": np.zeros((3, 3, 2, 2))}})
+
+
+def test_segnet_unet_input_keeps_the_one_scene_layout():
+    """The seg net hands its U-Net a contiguous (B, C, D, H, W) grid.  On one
+    scene that gives, bit for bit, the features of the unsqueezed view
+    ``grid.permute(3, 0, 1, 2)[None]``, whose size-1 batch stride (C) keeps
+    torch from taking channels-last conv kernels, which round the bf16
+    convs otherwise."""
+    xyz, nrm = _scene_cloud("nut")
+    origin = xyz.min(0) - 0.01
+    net = SegNet(voxel_size=VOXEL, grid_dims=GRID)
+    net.load_state_dict(convert.flax_state_dict(_params("nut", "seg")))
+    with torch.no_grad():
+        grid, _ = voxelize(torch.as_tensor(xyz)[None], torch.as_tensor(nrm)[None],
+                           torch.as_tensor(origin)[None], VOXEL, GRID)
+        u_batch = net.VoxelUNet_0(grid.permute(0, 4, 1, 2, 3).contiguous())
+        u_view = net.VoxelUNet_0(grid[0].permute(3, 0, 1, 2)[None])
+    assert grid.shape == (1, *GRID, 4)
+    assert torch.equal(u_batch, u_view)
