@@ -151,12 +151,13 @@ def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, alpha: torch.Tensor) -> torch
 
 
 def interpolate_poses(T0: torch.Tensor, T1: torch.Tensor, alphas: torch.Tensor) -> torch.Tensor:
-    """Waypoint poses between two 4x4 transforms: translation lerp +
-    rotation slerp.  alphas (K,) -> (K,4,4)."""
-    q0 = matrix_to_quat(T0[:3, :3])
-    q1 = matrix_to_quat(T1[:3, :3])
+    """Waypoint poses between 4x4 transforms T0, T1 (..., 4, 4): translation
+    lerp + rotation slerp.  alphas (K,) -> (..., K, 4, 4)."""
+    q0 = matrix_to_quat(T0[..., :3, :3])[..., None, :]
+    q1 = matrix_to_quat(T1[..., :3, :3])[..., None, :]
     q = quat_slerp(q0, q1, alphas)
-    t = T0[:3, 3][None] * (1 - alphas[:, None]) + T1[:3, 3][None] * alphas[:, None]
+    t = (T0[..., None, :3, 3] * (1 - alphas[:, None])
+         + T1[..., None, :3, 3] * alphas[:, None])
     return pose_from_qt(q, t)
 
 

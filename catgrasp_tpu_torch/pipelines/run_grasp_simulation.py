@@ -27,8 +27,9 @@ retried at other bandwidths, the NUNOCS net's RANSAC pose and the grasp
 net's P(G); a grasp predicter alone gives P(G) in oracle mode too).  With
 learned segments the simulator tracks the body the segment mostly shows,
 rebound after the pick to the body most in the grasp's closing channel.
-Articulated arm dynamics raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports them.
+With ``arm_dynamics`` the arm-executed pick and place step the trajectory
+a force-limited PD-controlled articulated arm achieves tracking the planned
+schedule (``sim.arm.dynamicize_schedule``), not the schedule itself.
 
 The numpy randomness makes the JAX loop's calls in the same order: the
 4,096-point background and 512-point collision subsamples of each segment
@@ -701,17 +702,27 @@ def plan_place(scene: EvalScene, ob_in_grasp: np.ndarray, q_cur: np.ndarray,
     return sched, {"sym": s, "fails": fails}
 
 
+def dynamicized(sched: np.ndarray, device) -> np.ndarray:
+    """The trajectory the articulated arm achieves tracking a planned
+    schedule (T, 7), tracked on ``device``."""
+    return simarm.dynamicize_schedule(torch.as_tensor(sched, device=device)).cpu().numpy()
+
+
 def execute_place(scene: EvalScene, state: SceneState, params: SceneParams, target: int,
                   sched: np.ndarray, ob_in_grasp: torch.Tensor, width: torch.Tensor,
-                  grip_center: torch.Tensor, verbose: bool = False):
-    """Step the place schedule in the scene and check the drop against the
-    category's success bands.  Returns (placed, state after the drop)."""
+                  grip_center: torch.Tensor, verbose: bool = False,
+                  arm_dynamics: bool = False):
+    """Step the place schedule in the scene (with ``arm_dynamics``, the
+    trajectory the articulated arm achieves tracking it) and check the drop
+    against the category's success bands.  Returns (placed, state after the
+    drop)."""
     dev = scene.device
     place_t = es.TASK_POSES[scene.class_name][1]
     ee_in_grasp = torch.as_tensor(scene.gripper.ee_in_grasp, device=dev)
     base = torch.as_tensor(scene.base_in_world, device=dev)
+    run = dynamicized(sched, dev) if arm_dynamics else sched
     final, ob_pose_final, place_traj = simarm.execute_place_arm(
-        scene.lib, state, params, scene.env_bin, target, torch.as_tensor(sched, device=dev),
+        scene.lib, state, params, scene.env_bin, target, torch.as_tensor(run, device=dev),
         base, ee_in_grasp, ob_in_grasp, width, scene.gripper.spec, n_move=N_MOVE_P,
         n_drop=N_DROP_P, narrowphase=scene.geometry, center=grip_center)
     T_fix_inv = torch.as_tensor(np.linalg.inv(scene.T_fix), device=dev)
@@ -807,10 +818,7 @@ class EvalCounters:
     num_task_grasp_succ: int = 0
 
 
-def _check_mode(oracle, predicters, arm_dynamics):
-    if arm_dynamics:
-        raise NotImplementedError(
-            "articulated arm dynamics are not ported: ROADMAP.md §1, 'Rest' (kin/dynamics.py)")
+def _check_mode(oracle, predicters):
     if not oracle and "nocs" not in (predicters or {}):
         raise ValueError("learned perception (oracle off) needs the NUNOCS predicter: pass "
                          "predicters from predict.artifacts.load_predicters")
@@ -852,7 +860,7 @@ def simulate_grasp_rounds(class_name: str = "nut", n_rounds: int = 2,
     either mode.  With a ``timings`` dict, the wall seconds of each stage
     are summed into it (the device synchronised at each stage end;
     ``scoring_s`` includes ``grasp_net_s``)."""
-    _check_mode(oracle, predicters, arm_dynamics)
+    _check_mode(oracle, predicters)
     dev = resolve_device(device)
     mlog = MetricsLogger(metrics_path, run="eval", class_name=class_name,
                          seed=seed, oracle=oracle)
@@ -938,6 +946,10 @@ def simulate_grasp_rounds(class_name: str = "nut", n_rounds: int = 2,
             if arm:
                 # --- execute the pick through the arm ---
                 sched = pick_schedule(pick_plan)
+                if arm_dynamics:
+                    # the colliders follow the articulated arm's achieved
+                    # trajectory, not the planned one
+                    sched = dynamicized(sched, dev)
                 picked, state_after, ob_in_grasp, w_f, c_f, disturb = simarm.execute_pick_arm(
                     scene.lib, state, params, scene.env_bin, target,
                     torch.as_tensor(sched, device=dev), base, ee_in_grasp, spec,
@@ -964,7 +976,7 @@ def simulate_grasp_rounds(class_name: str = "nut", n_rounds: int = 2,
                     if place_sched is not None:
                         placed, state_after = execute_place(
                             scene, state_after, params, target, place_sched, ob_in_grasp, w_f,
-                            c_f, verbose)
+                            c_f, verbose, arm_dynamics)
                         stages.lap("place_execution_s")
                 else:
                     placed = bool(place_floating(scene, state, params, target, ob_in_grasp, w_f,

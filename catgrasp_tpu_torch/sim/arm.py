@@ -12,8 +12,9 @@ are plain ``if``s; the closing latch, the width, the grip and the gate
 quantities stay tensors, so no step waits for the device.  Everything that
 does not depend on the simulated state (tool poses, arm boxes, the held
 object's ride poses) is computed for the whole schedule at once.
-The articulated-dynamics tracking of a schedule (``dynamicize_schedule``)
-is not ported.
+``dynamicize_schedule`` replaces a planned schedule with the one a
+force-limited PD-controlled articulated arm achieves tracking it
+(``run_grasp_simulation --arm_dynamics 1``).
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import torch
 
 from ..core import transforms as tf
 from ..device import constant
-from ..kin import iiwa
+from ..kin import dynamics, iiwa
 from . import engine
 from .env_grasp import GripperSpec, closing_step, closing_touched_init, gripper_env
 from .types import SceneParams, SceneState, ShapeLib
@@ -119,6 +120,17 @@ def resample_traj(waypoints: np.ndarray, n: int) -> np.ndarray:
     for j in range(7):
         out[:, j] = np.interp(ts, s, w[:, j])
     return out
+
+
+def dynamicize_schedule(qs: torch.Tensor) -> torch.Tensor:
+    """The trajectory (T, 7) a force-limited PD-controlled articulated iiwa
+    achieves tracking the joint schedule ``qs`` (T, 7) from rest at
+    ``qs[0]`` (:func:`kin.dynamics.track_schedule`, on ``qs``'s device):
+    the executors then step the dynamically achieved configurations through
+    the scene instead of the ideal kinematic playback.  The waypoints are
+    the engine's steps, ``engine.DT`` apart."""
+    achieved, _ = dynamics.track_schedule(qs[0], qs, dt=engine.DT)
+    return achieved
 
 
 def _schedule(qs: torch.Tensor, base_in_world: torch.Tensor, ee_in_grasp: torch.Tensor,

@@ -233,7 +233,7 @@ def open_gripper_collision(obj_pts_grasp: torch.Tensor, spec: GripperSpec) -> to
     """Open-gripper collision test: any object point (..., C, 3) inside any
     gripper box at full opening; (...) bool."""
     dev = obj_pts_grasp.device
-    centers, halves = finger_boxes(torch.tensor(spec.max_width, device=dev), spec)
+    centers, halves = finger_boxes(torch.full((), spec.max_width, device=dev), spec)
     rel = obj_pts_grasp[..., :, None, :] - centers
     d, _ = engine.box_sdf_and_normal(rel, halves)
     return torch.any(d < 0.0, dim=(-2, -1))

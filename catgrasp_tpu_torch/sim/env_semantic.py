@@ -1,11 +1,24 @@
-"""Task poses, the placement check and the floating-gripper place
-(``catgrasp_tpu/sim/env_semantic.py``).
+"""Task-affordance discovery, the placement check and the floating-gripper
+place (``catgrasp_tpu/sim/env_semantic.py`` in PyTorch).
 
-Ported: the task poses relative to each category's place fixture, the
-class-specific success check, and ``place_and_drop``, the place of the
-eval's floating-gripper baseline.  Affordance discovery (``try_grasp``,
-``accumulate_affordance``) belongs to affordance generation and is not
-ported.
+``try_grasp`` labels each grasp of a DB by what happens when it is used for
+the task: hold the object at its task pose over the placement fixture,
+close the gripper and shake; if the hold is stable, sweep the fingers from
+the pre-place to the place pose against the fixture, open, drop, and check
+the category's placement.  Outcome 0 = grasp fail, 1 = stable but task
+fail, 2 = task success; the object surface points the fingers touch are
+recorded, and ``accumulate_affordance`` turns the outcomes into a
+per-point P(task | stable grasp).  The JAX package vmaps one grasp; here a
+batch of G grasps is one scene batch at every stage:
+  A. stability, in-hand drift and final width: :func:`env_grasp.grasp_rollout`
+  B. insertion: the finger boxes' sample points against the fixture's CSG
+     along interpolated waypoints
+  C. drop: the object from its held place pose onto the fixture (a huge-mass
+     body in the same engine), G scenes of 2 bodies
+  D. :func:`place_success`.
+
+``place_and_drop`` is the floating-gripper baseline's place in the eval: the
+same sweep (palm included) and drop for an object already held.
 """
 from __future__ import annotations
 
@@ -16,8 +29,14 @@ from ..core import transforms as tf
 from ..device import constant
 from ..geom import csg as csglib
 from . import engine
-from .env_grasp import GripperSpec, finger_boxes
+from .env_grasp import GripperSpec, finger_boxes, finger_contact_points, grasp_rollout
 from .types import SceneParams, SceneState, ShapeLib
+
+# Provenance stamp of affordance labels: the JAX package's version of the
+# try_grasp semantics these labels follow (v3: the latched per-finger
+# closing law, motor-backed grip friction, exact tangential effective mass,
+# split-impulse Baumgarte, the friction passivity guard).
+TRY_GRASP_VERSION = 3
 
 # Task poses relative to the fixture origin: (pre-place, place) object
 # positions.  The place (release) pose already captures the part on the
@@ -65,14 +84,19 @@ _BOX_LATTICE_CELLS = (13172, 27535, 9272, 25839, 24373, 5713, 22976, 31105, 1231
 _FIXTURE_MASS = 1e9
 
 
-def _gripper_sample_points(spec: GripperSpec, width: torch.Tensor) -> torch.Tensor:
-    """32 points inside each of the gripper's three boxes (fingers, then
-    palm) at opening ``width``, grasp frame: (96, 3)."""
-    centers, halves = finger_boxes(width, spec)
-    idx = constant(_BOX_LATTICE_CELLS, torch.int64, width.device)
+def _gripper_sample_points(spec: GripperSpec, width: torch.Tensor, n_boxes: int = 3,
+                           center=0.0) -> torch.Tensor:
+    """32 points inside each of the gripper's first ``n_boxes`` boxes
+    (fingers, then palm) at opening ``width`` (...) with the finger midline
+    at ``center``, grasp frame: (..., 32 * n_boxes, 3).  ``n_boxes=2`` is
+    the fingers only, the insertion sweep of affordance discovery."""
+    centers, halves = finger_boxes(width, spec, center)
+    centers, halves = centers[..., :n_boxes, :], halves[..., :n_boxes, :]
+    idx = constant(_BOX_LATTICE_CELLS, torch.int64, centers.device)
     ijk = torch.stack([idx // 1024, (idx // 32) % 32, idx % 32], dim=-1)
     g = (ijk.to(torch.float32) + 0.5) / 32
-    return ((g * 2 - 1)[None] * halves[:, None, :] + centers[:, None, :]).reshape(-1, 3)
+    pts = (g * 2 - 1) * halves[..., :, None, :] + centers[..., :, None, :]
+    return pts.reshape(centers.shape[:-2] + (-1, 3))
 
 
 def _drop_floor(device) -> engine.StaticEnv:
@@ -85,6 +109,47 @@ def _drop_floor(device) -> engine.StaticEnv:
         vel=torch.zeros((1, 3), device=device), friction=one * 0.7,
         enabled=torch.ones((1,), dtype=torch.bool, device=device),
         imp_budget=one * float("inf"), grip=torch.zeros((1,), dtype=torch.bool, device=device))
+
+
+def drop_on_fixture(lib: ShapeLib, obj_shape, fixture_shape_idx: int, scale,
+                    release: torch.Tensor, drop_steps: int = 60,
+                    narrowphase: str = "csg") -> torch.Tensor:
+    """Release the object at ``release`` (..., 4, 4), fixture frame, and
+    drop it ``drop_steps`` steps onto the fixture: a huge-mass, slippery
+    (friction 0.1) body at the origin on a floor slab.  Each leading index
+    is a scene of 2 bodies; returns the object's final pose (..., 4, 4)."""
+    dev = release.device
+    lead = release.shape[:-2]
+    shape_ids = torch.cat([torch.reshape(torch.as_tensor(obj_shape, device=dev), (1,)),
+                           torch.full((1,), fixture_shape_idx, device=dev)])
+    scales = torch.cat([torch.reshape(torch.as_tensor(scale, dtype=torch.float32, device=dev),
+                                      (1,)),
+                        torch.ones((1,), device=dev)])
+    params = SceneParams.create(lib, shape_ids, scales)
+    fix = torch.arange(2, device=dev) == 1
+    params = params.replace(
+        mass=torch.where(fix, _FIXTURE_MASS, params.mass),
+        inertia=torch.where(fix[:, None], _FIXTURE_MASS, params.inertia),
+        # slippery fixture so parts slide into place (lateral friction 0.1)
+        friction=torch.where(fix, 0.1, params.friction))
+    params = SceneParams(**{k: v.expand(*lead, *v.shape) for k, v in vars(params).items()})
+    ident = constant((1.0, 0.0, 0.0, 0.0), torch.float32, dev)
+    st = SceneState(
+        pos=torch.stack([release[..., :3, 3], torch.zeros(lead + (3,), device=dev)], dim=-2),
+        quat=torch.stack([tf.matrix_to_quat(release[..., :3, :3]), ident.expand(lead + (4,))],
+                         dim=-2),
+        linvel=torch.zeros(lead + (2, 3), device=dev),
+        angvel=torch.zeros(lead + (2, 3), device=dev),
+        active=torch.ones(lead + (2,), dtype=torch.bool, device=dev))
+    final = engine.rollout(st, params, lib, _drop_floor(dev), drop_steps, gravity=-9.8,
+                           narrowphase=narrowphase)
+    return tf.pose_from_qt(final.quat[..., 0, :], final.pos[..., 0, :])
+
+
+def _translate(t: torch.Tensor) -> torch.Tensor:
+    T = torch.eye(4, device=t.device)
+    T[:3, 3] = t
+    return T
 
 
 def place_and_drop(lib: ShapeLib, obj_shape: torch.Tensor, fixture_shape_idx: int,
@@ -124,27 +189,117 @@ def place_and_drop(lib: ShapeLib, obj_shape: torch.Tensor, fixture_shape_idx: in
 
     # release pose of the real object: the believed pose at place_t composed
     # with the in-hand slip
-    release = torch.eye(4, device=dev)
-    release[:3, 3] = place_t
-    release = release @ slip
-    shape_ids = torch.cat([torch.reshape(obj_shape, (1,)),
-                           torch.full((1,), fixture_shape_idx, device=dev)])
-    scales = torch.cat([torch.reshape(torch.as_tensor(scale, dtype=torch.float32), (1,)),
-                        torch.ones((1,), device=dev)])
-    params = SceneParams.create(lib, shape_ids, scales)
-    fix = torch.arange(2, device=dev) == 1
-    params = params.replace(
-        mass=torch.where(fix, _FIXTURE_MASS, params.mass),
-        inertia=torch.where(fix[:, None], _FIXTURE_MASS, params.inertia),
-        # slippery fixture so parts slide into place (lateral friction 0.1)
-        friction=torch.where(fix, 0.1, params.friction))
-    st = SceneState(
-        pos=torch.stack([release[:3, 3], torch.zeros(3, device=dev)]),
-        quat=torch.stack([tf.matrix_to_quat(release[:3, :3]),
-                          constant((1.0, 0.0, 0.0, 0.0), torch.float32, dev)]),
-        linvel=torch.zeros((2, 3), device=dev), angvel=torch.zeros((2, 3), device=dev),
-        active=torch.ones((2,), dtype=torch.bool, device=dev))
-    final = engine.rollout(st, params, lib, _drop_floor(dev), drop_steps, gravity=-9.8,
-                           narrowphase=narrowphase)
-    ob_pose_final = tf.pose_from_qt(final.quat[0], final.pos[0])
+    release = _translate(place_t) @ slip
+    ob_pose_final = drop_on_fixture(lib, obj_shape, fixture_shape_idx, scale, release,
+                                    drop_steps, narrowphase)
     return ~blocked & place_success(class_name, ob_pose_final, place_t)
+
+
+def grasp_contacts(grasp_in_ob: torch.Tensor, drift: torch.Tensor, width: torch.Tensor,
+                   center: torch.Tensor, aff_pts: torch.Tensor, scale,
+                   spec: GripperSpec = GripperSpec()):
+    """Masks (..., P) of the affordance points ``aff_pts`` (P, 3), object
+    frame, that the +y and the -y finger touch (within 3 mm of the inner
+    face) when the object sits at its post-close pose ``drift`` (..., 4, 4)
+    in the gripper at ``grasp_in_ob`` with opening ``width`` and finger
+    midline ``center`` (...)."""
+    pts_w = tf.transform_points(drift, aff_pts * scale)
+    pts_g = tf.transform_points(tf.pose_inverse(grasp_in_ob), pts_w)
+    return finger_contact_points(pts_g, width[..., None], spec, surface_tol=0.003,
+                                 center=center[..., None])
+
+
+def insertion_blocked(lib: ShapeLib, fixture_shape_idx: int, grasp_in_ob: torch.Tensor,
+                      drift: torch.Tensor, width: torch.Tensor, center: torch.Tensor,
+                      class_name: str, spec: GripperSpec = GripperSpec(),
+                      n_waypoints: int = 8) -> torch.Tensor:
+    """The insertion sweep: the object rides rigidly at its drifted in-hand
+    pose ``drift`` (..., 4, 4) while the gripper translates from the
+    pre-place to the place pose; the fingers' sample points (the palm is
+    free to brush the fixture) are tested against the fixture's CSG at
+    ``n_waypoints`` waypoints.  Returns (...) bool: a finger point came
+    within 0.5 mm of the fixture."""
+    dev = drift.device
+    pre_t, place_t = (constant(tuple(float(v) for v in t), torch.float32, dev)
+                      for t in TASK_POSES[class_name])
+    alphas = torch.linspace(0.0, 1.0, n_waypoints, device=dev)
+    path = tf.interpolate_poses(_translate(pre_t) @ drift, _translate(place_t) @ drift,
+                                alphas)  # (..., K, 4, 4)
+    # the grasp pose in the fixture frame while the object is held here
+    grasp_w = path @ tf.pose_inverse(drift)[..., None, :, :] @ grasp_in_ob[..., None, :, :]
+    grip_pts_g = _gripper_sample_points(spec, width, n_boxes=2, center=center)
+    gp_w = tf.transform_points(grasp_w, grip_pts_g[..., None, :, :])
+    d_grip = csglib.csg_sdf(csglib.select_shape(lib.csg, fixture_shape_idx), gp_w)
+    return torch.any(torch.amin(d_grip, dim=-1) < 5e-4, dim=-1)
+
+
+def try_grasp_after_rollout(lib: ShapeLib, roll: dict, obj_shape, fixture_shape_idx: int,
+                            scale, grasp_in_ob: torch.Tensor, class_name: str,
+                            aff_pts: torch.Tensor, spec: GripperSpec = GripperSpec(),
+                            n_waypoints: int = 8, drop_steps: int = 60,
+                            narrowphase: str = "csg") -> dict:
+    """Stages after the close-and-shake rollout ``roll`` (the dict of
+    :func:`env_grasp.grasp_rollout` over (...) grasps): the contacts at the
+    post-close state, the insertion sweep, the drop from the held place
+    pose, the placement check.  Returns a dict of (...) tensors: ``ret``,
+    ``stable``, ``blocked``, ``placed``, the contact masks ``m_pos``,
+    ``m_neg`` and ``contact_mask`` (..., P), the drop's start pose
+    ``release`` and the object's final pose ``ob_pose_final``."""
+    place_t = constant(tuple(float(v) for v in TASK_POSES[class_name][1]), torch.float32,
+                       grasp_in_ob.device)
+    # the object fell out (moved > 0.2 m during the shake), or the open
+    # gripper already collided; past that, everything uses the post-close
+    # state (the hold test restores it)
+    held = ~roll["collided"] & (roll["displacement"] <= 0.2)
+    drift = roll["ob_pose_close"]
+    m_pos, m_neg = grasp_contacts(grasp_in_ob, drift, roll["width"], roll["center"], aff_pts,
+                                  scale, spec)
+    stable = held & torch.any(m_pos, dim=-1) & torch.any(m_neg, dim=-1)
+    blocked = insertion_blocked(lib, fixture_shape_idx, grasp_in_ob, drift, roll["width"],
+                                roll["center"], class_name, spec, n_waypoints)
+    # the drop starts from the held pose after the insertion (drifted)
+    release = _translate(place_t) @ drift
+    ob_pose_final = drop_on_fixture(lib, obj_shape, fixture_shape_idx, scale, release,
+                                    drop_steps, narrowphase)
+    placed = place_success(class_name, ob_pose_final, place_t)
+    ret = torch.where(stable, torch.where(blocked | ~placed, 1, 2), 0)
+    return {"ret": ret, "stable": stable, "blocked": blocked, "placed": placed,
+            "m_pos": m_pos, "m_neg": m_neg, "contact_mask": (m_pos | m_neg) & stable[..., None],
+            "release": release, "ob_pose_final": ob_pose_final}
+
+
+def try_grasp(lib: ShapeLib, obj_shape, fixture_shape_idx: int, scale,
+              grasp_in_ob: torch.Tensor, class_name: str, aff_pts: torch.Tensor,
+              spec: GripperSpec = GripperSpec(), n_waypoints: int = 8, drop_steps: int = 60,
+              narrowphase: str = "csg"):
+    """Grasps (G, 4, 4) in the object frame -> (ret (G,) in {0, 1, 2},
+    contact mask over ``aff_pts`` (G, P)).  The G grasps are one scene batch
+    at every stage.
+
+    ``lib`` holds the object shape (index ``obj_shape``) and the fixture
+    shape (index ``fixture_shape_idx``, with its CSG tree); ``aff_pts``
+    (P, 3) are dense object surface points for the affordance labels."""
+    dev = grasp_in_ob.device
+    # the object's index and scale as device scalars, copied once
+    if not isinstance(obj_shape, torch.Tensor):
+        obj_shape = constant((int(obj_shape),), torch.int64, dev)[0]
+    if not isinstance(scale, torch.Tensor):
+        scale = constant((float(scale),), torch.float32, dev)[0]
+    roll = grasp_rollout(lib, obj_shape, scale, grasp_in_ob, spec, narrowphase=narrowphase)
+    out = try_grasp_after_rollout(lib, roll, obj_shape, fixture_shape_idx, scale, grasp_in_ob,
+                                  class_name, aff_pts, spec, n_waypoints, drop_steps,
+                                  narrowphase)
+    return out["ret"], out["contact_mask"]
+
+
+def accumulate_affordance(rets: np.ndarray, contact_masks: np.ndarray, min_trials: int = 10):
+    """Per-point P(task | stable grasp) from trial outcomes: rets (G,),
+    contact_masks (G, P) -> (affordance (P,) float32, n_stable (P,)).
+    Points touched by fewer than ``min_trials`` stable grasps are neutral
+    0.5."""
+    stable = rets >= 1
+    task = rets == 2
+    n_stable = (contact_masks & stable[:, None]).sum(axis=0)
+    n_task = (contact_masks & task[:, None]).sum(axis=0)
+    aff = np.where(n_stable >= min_trials, n_task / np.maximum(n_stable, 1), 0.5)
+    return aff.astype(np.float32), n_stable

@@ -114,8 +114,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    memory, launches and busy share over 10 profiled steps, no host wait in
    a step, a ``last.ckpt`` resumed in a fresh state giving the same next
    loss, and the loss falling over 20 steps on one repeated batch;
-15. a ``grasp_db``, a ``training`` and a ``kernels`` JSON line, the card
-   line, then ``{"ok": true, ...}``.
+15. affordance labels and the canonical: nut/train/0's 4,096 tracked DB
+   grasps x 1,024 affordance points through ``generate_affordance`` in one
+   dispatch, with every launch count set to 0 just before and read just
+   after (no kernel on this path): the wall, the outcomes and the point
+   affordance against the tracked JAX labels (outcomes within 2 binomial
+   SD); one dispatch of the CLI's 256 grasps, timed and equal to the whole
+   batch's labels of the same grasps; 10 drop steps of the batch profiled;
+   no host wait in ``try_grasp``; ``compute_canonical`` for nut on the card
+   with this instance's labels, its medoid and codebook equal to the CPU
+   run's, its affordance against the tracked canonical;
+16. ``--arm_dynamics 1``: a nut round of 8 objects, at most 2 attempts,
+   through the same counted run as phase 7 (K1 and K2 held on its gate and
+   frame), each ``dynamicize_schedule`` call timed with its largest
+   |achieved - scheduled| joint error, and no host wait in one;
+17. a ``grasp_db``, a ``training``, an ``affordance``, an ``arm_dynamics`` and
+   a ``kernels`` JSON line, the card line, then ``{"ok": true, ...}``.
 
 It imports nothing of the JAX package.  Without a GPU it exits non-zero
 before printing any result.
@@ -1981,6 +1995,190 @@ def training_phase(dev, packed_dir: str, work: str) -> dict:
     return record
 
 
+# --------------------------------------------------------------------------
+# affordance labels and the canonical; articulated arm dynamics in the eval
+# --------------------------------------------------------------------------
+
+# the least per-grasp ret agreement and point-affordance Pearson with the
+# tracked JAX labels of nut/train/0: JAX's own labels made on a CPU agree
+# with its TPU-made ones on 0.999756 of hnm/train/1's grasps, and the port
+# agreed 1.0000 / Pearson 1.0000 on nut/train/0 on the card (PERF.md)
+RET_AGREE_MIN, AFFORDANCE_PEARSON_MIN = 0.99, 0.99
+
+
+def affordance_phase(dev, card: str):
+    """Affordance labels and the canonical at full width: nut/train/0's
+    4,096 tracked DB grasps with 1,024 affordance points through
+    ``generate_affordance`` in one dispatch (``chunk 4096``) with every
+    launch count set to 0 just before and read just after (no kernel on
+    this path); one ``chunk 256`` dispatch, the CLI's default, timed and
+    held equal to the same grasps of the whole batch; 10 drop steps of the
+    batch profiled; ``no_host_waits`` over ``try_grasp``; the outcomes and
+    the point affordance against the tracked JAX labels; then
+    ``compute_canonical`` for nut on the card with this instance's labels in
+    place of the tracked ones: the medoid and the codebook equal to the same
+    call on the CPU, the canonical affordance against the tracked file.
+    Returns (launches, record)."""
+    from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
+    from catgrasp_tpu_torch.pipelines import generate_affordance as ga
+    from catgrasp_tpu_torch.pipelines import make_canonical as mc
+    from catgrasp_tpu_torch.sim import env_semantic as es
+    from scripts import affordance_protocol
+
+    db = dict(np.load(os.path.join(REPO, "dataset", "grasps", "nut_train_0_complete_grasp.npz")))
+    tracked = np.load(os.path.join(REPO, "dataset", "affordance", "nut_train_0_affordance.npz"))
+    drops, drop = [], es.drop_on_fixture
+
+    def drop_recorder(*args, **kw):
+        drops[:] = [(args, kw)]
+        return drop(*args, **kw)
+
+    es.drop_on_fixture = drop_recorder
+    collision.box_hits.launches = 0
+    render_march.march_csg.launches = 0
+    fused_rollout.rollout_fused.launches = 0
+    t0 = time.perf_counter()
+    try:
+        out = ga.generate_affordance("nut", "train", 0, db, chunk=4096, device=dev,
+                                     verbose=False)
+        torch.cuda.synchronize()
+    finally:
+        es.drop_on_fixture = drop
+    wall = time.perf_counter() - t0
+    launches = {"box_hits": collision.box_hits.launches,
+                "march_csg": render_march.march_csg.launches,
+                "rollout_fused": fused_rollout.rollout_fused.launches}
+    rets = out["rets"]
+    n = len(rets)
+    cmp = affordance_protocol.compare_labels(out, tracked)
+    print(f"affordance, nut/train/0 at full width ({n:,} grasps x 1,024 points, one chunk of "
+          f"4,096): wall {wall:.2f} s on {card}; outcomes fail / stable / task "
+          f"{cmp['outcomes']} against the tracked JAX labels' {cmp['jax_outcomes']} (2 "
+          f"binomial SD {[round(x, 1) for x in cmp['two_sd_counts']]}); per-grasp ret "
+          f"agreement {cmp['ret_agree']:.4f} (limit {RET_AGREE_MIN}); point affordance "
+          f"Pearson {cmp['affordance_pearson']:.4f} (limit {AFFORDANCE_PEARSON_MIN}; mean "
+          f"|diff| {cmp['affordance_mean_abs_diff']:.4f})", flush=True)
+    print(f"affordance launches: {json.dumps(launches)} (no kernel on this path)", flush=True)
+    if launches != {"box_hits": 0, "march_csg": 0, "rollout_fused": 0}:
+        fail(f"affordance: launches {launches}, expected none")
+    if rets.shape != (4096,) or out["affordance"].shape != (1024,) \
+            or not np.isfinite(out["affordance"]).all() or set(np.unique(rets)) - {0, 1, 2}:
+        fail("affordance: labels out of shape or range")
+    if not cmp["points_equal_jax"]:
+        fail("affordance: the affordance points differ from JAX's draw")
+    if not cmp["within_two_sd"]:
+        fail(f"affordance: outcomes {cmp['outcomes']} outside 2 binomial SD of JAX's")
+    if cmp["ret_agree"] < RET_AGREE_MIN:
+        fail(f"affordance: per-grasp ret agreement {cmp['ret_agree']:.4f} < {RET_AGREE_MIN}")
+    if cmp["affordance_pearson"] < AFFORDANCE_PEARSON_MIN:
+        fail(f"affordance: point affordance Pearson {cmp['affordance_pearson']:.4f} < "
+             f"{AFFORDANCE_PEARSON_MIN}")
+
+    # one dispatch of the CLI's default chunk, on the same grasps
+    lib, aff_pts, _ = ga.affordance_setup("nut", "train", 0, device=dev)
+    aff_t = torch.as_tensor(aff_pts, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    r256, m256 = ga.try_grasp_chunks(lib, "nut", aff_t, db["grasp_poses"][:256], 256,
+                                     verbose=False)
+    chunk_s = time.perf_counter() - t1
+    same = bool(np.array_equal(r256, rets[:256]))
+    print(f"affordance: one chunk-256 dispatch {chunk_s:.2f} s (x {4096 / 256:.0f} dispatches "
+          f"extrapolates to {chunk_s * 16:.1f} s an instance, against {wall:.2f} s measured in "
+          f"one); its rets equal the "
+          f"whole batch's on the same grasps: {same}", flush=True)
+    if not same:
+        fail("affordance: the labels depend on the chunk")
+
+    # 10 drop steps of the whole batch: launches a step and busy share
+    (dargs, _), = drops
+    release = dargs[4]
+
+    def drop10():
+        return es.drop_on_fixture(*dargs[:5], 10)
+
+    drop10()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    drop10()
+    torch.cuda.synchronize()
+    drop_s = time.perf_counter() - t2
+    busy = device_profile(f"10 drop steps of {release.shape[0]} scenes x 2 bodies", drop10,
+                          drop_s)
+    grasps64 = torch.as_tensor(db["grasp_poses"][:64], device=dev)
+    no_host_waits("try_grasp over 64 grasps (rollout, contacts, sweep, drop)",
+                  lambda: es.try_grasp(lib, 0, 1, 1.0, grasps64, "nut", aff_t))
+
+    # the canonical for nut on the card, this instance's labels in place of
+    # the tracked ones, against the same call on the CPU
+    dbs, affs = mc.load_inputs("nut", os.path.join(REPO, "dataset", "grasps"),
+                               os.path.join(REPO, "dataset", "affordance"))
+    affs[0] = out
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    canon = mc.compute_canonical("nut", dbs, affs, device=dev)
+    canon_s = time.perf_counter() - t3
+    cpu = mc.compute_canonical("nut", dbs, affs, device="cpu")
+    canon_cmp = affordance_protocol.compare_canonical(
+        canon, cpu, np.load(os.path.join(REPO, "dataset", "nut_canonical.npz")))
+    same_cpu = canon_cmp["equal_cpu"]
+    print(f"canonical, nut on the card with this instance's labels: {canon_s:.2f} s; medoid "
+          f"{canon_cmp['medoid']} (file {canon_cmp['medoid_tracked']}), "
+          f"{canon_cmp['n_codebook']:,} codebook grasps; equal to the CPU run: "
+          f"{json.dumps(same_cpu)}; canonical affordance against the tracked file: Pearson "
+          f"{canon_cmp['canonical_affordance_pearson']:.4f}, mean |diff| "
+          f"{canon_cmp['canonical_affordance_mean_abs_diff']:.4f}", flush=True)
+    if not (same_cpu["medoid_index"] and same_cpu["canonical_grasps"]
+            and same_cpu["canonical_grasp_scores"]):
+        fail("canonical: the card's medoid or codebook differs from the CPU run")
+    if canon_cmp["affordance_max_abs_diff_cpu"] > 1e-6:
+        fail("canonical: the card's affordance codebook differs from the CPU run")
+    record = dict(cmp, wall_s=wall, chunk256_s=chunk_s, drop_step_ms=drop_s / 10 * 1e3,
+                  drop_profile=busy, canonical_s=canon_s, canonical=canon_cmp)
+    return launches, record
+
+
+def dynamics_round(dev, card: str):
+    """``--arm_dynamics 1``: one nut round of 8 objects, at most 2 attempts,
+    through ``eval_round`` (K1 and K2 held on its gate and frame), every
+    ``dynamicize_schedule`` call timed (synchronised) with its largest
+    |achieved - scheduled| joint error; ``no_host_waits`` over a 20-waypoint
+    schedule.  Returns (launches, record)."""
+    from catgrasp_tpu_torch.sim import arm as simarm
+
+    calls, entry = [], simarm.dynamicize_schedule
+
+    def recorder(qs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = entry(qs)
+        torch.cuda.synchronize()
+        calls.append({"waypoints": int(qs.shape[0]), "ms": (time.perf_counter() - t0) * 1e3,
+                      "max_err_rad": float((out - qs).abs().max())})
+        return out
+
+    simarm.dynamicize_schedule = recorder
+    try:
+        launches, out = eval_round(dev, "arm-dynamics round", "nut", 8, 2, arm_dynamics=True)
+    finally:
+        simarm.dynamicize_schedule = entry
+    for c in calls:
+        print(f"  dynamicize_schedule: {c['waypoints']} waypoints x 8 substeps in "
+              f"{c['ms']:.1f} ms ({c['ms'] / c['waypoints'] / 8 * 1e3:.1f} us a substep) on "
+              f"{card}; largest |achieved - scheduled| {c['max_err_rad']:.4f} rad", flush=True)
+    # one call a pick, and one a place that was planned
+    tally = out["tally"]
+    if not tally["num_attempts"] <= len(calls) <= tally["num_attempts"] \
+            + tally["num_stable_grasp"]:
+        fail(f"arm-dynamics round: {len(calls)} dynamicize_schedule calls for {tally}")
+    if not all(np.isfinite(c["max_err_rad"]) for c in calls):
+        fail("arm-dynamics round: the tracked schedule is not finite")
+    qs = torch.zeros((20, 7), device=dev) + torch.linspace(0, 0.3, 20, device=dev)[:, None]
+    no_host_waits("dynamicize_schedule over 20 waypoints", lambda: entry(qs))
+    out.update(dynamicize=calls)
+    return launches, out
+
+
 def no_host_waits(label: str, fn) -> None:
     """Call ``fn`` once to warm it up, then again under
     ``torch.cuda.set_sync_debug_mode("warn")``: fail if any operation in it
@@ -2085,8 +2283,8 @@ def main() -> None:
 
 
 def run_all(dev, logs, card, work) -> None:
-    """Every phase, then the ``nets``, ``grasp_db``, ``training`` and
-    ``kernels`` lines."""
+    """Every phase, then the ``nets``, ``grasp_db``, ``training``,
+    ``affordance``, ``arm_dynamics`` and ``kernels`` lines."""
     check_box_hits_variants(dev)
     k1_random = check_box_hits(dev)
     scene, state, params, launches, times = main_path(dev)
@@ -2151,6 +2349,8 @@ def run_all(dev, logs, card, work) -> None:
     db_launches, grasp_db = grasp_db_phase(dev)
     td_launches, tdata, packed_dir = training_data_phase(dev, work)
     training = training_phase(dev, packed_dir, work)
+    aff_launches, affordance = affordance_phase(dev, card)
+    dyn_launches, dyn = dynamics_round(dev, card)
 
     from catgrasp_tpu_torch.ops import render_march
     k1_bound, k1_by = bound_of(k1["ops"], k1["bytes"])
@@ -2197,6 +2397,9 @@ def run_all(dev, logs, card, work) -> None:
          "at_nocs_gate_learned": nocs_gate_row("learned round", "nut", learned["k1"]),
          "launches_grasp_db": db_launches["box_hits"],
          "launches_training_data": td_launches["box_hits"],
+         "launches_affordance": aff_launches["box_hits"],
+         "launches_dynamics_round": dyn_launches["box_hits"],
+         "at_nocs_gate_dynamics": nocs_gate_row("arm-dynamics round", "nut", dyn["k1"]),
          "at_grasp_db_gate": {
              "shapes": f"the grasp DB's collision gate on nut/train/0's own inputs: "
                        f"P={grasp_db['k1']['P']}; the 200-point object cloud (3 open boxes) "
@@ -2234,6 +2437,10 @@ def run_all(dev, logs, card, work) -> None:
          "at_learned_round": {k: learned["k2"][k] for k in (
              "shapes", "seg_agree", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
          "launches_training_data": td_launches["march_csg"],
+         "launches_affordance": aff_launches["march_csg"],
+         "launches_dynamics_round": dyn_launches["march_csg"],
+         "at_dynamics_round": {k: dyn["k2"][k] for k in (
+             "shapes", "seg_agree", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
          "at_training_data": {
              "frames": {k: tdata["k2_frames"][k] for k in (
                  "shapes", "seg_agree", "seg_agree_bodies", "bodies_seen_equal",
@@ -2255,6 +2462,8 @@ def run_all(dev, logs, card, work) -> None:
          "launches_learned_round": learned_launches["rollout_fused"],
          "launches_grasp_db": db_launches["rollout_fused"],
          "launches_training_data": td_launches["rollout_fused"],
+         "launches_affordance": aff_launches["rollout_fused"],
+         "launches_dynamics_round": dyn_launches["rollout_fused"],
          "max_abs_err": k3["max_abs_err"], "within_tol_frac": k3["within_tol_frac"],
          "ms": k3["ms"], "wrapper_ms": k3["wrapper_ms"], "prepare_ms": k3["prepare_ms"],
          "timing": k3["timing"], "plain_ms": k3["plain_ms"], "engine_ms": k3["engine_ms"],
@@ -2267,6 +2476,9 @@ def run_all(dev, logs, card, work) -> None:
     print(json.dumps({"training": {"data": {k: v for k, v in tdata.items()
                                             if not k.startswith("k2_")},
                                    "nets": training}}), flush=True)
+    print(json.dumps({"affordance": affordance}), flush=True)
+    print(json.dumps({"arm_dynamics": {k: dyn[k] for k in (
+        "tally", "attempts", "stage_s", "wall_s", "launches", "dynamicize")}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
 
 

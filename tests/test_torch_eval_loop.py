@@ -333,19 +333,15 @@ def test_one_round_smoke(tmp_path, monkeypatch):
                                   pytest.param(dict(predicters={"grasp": None}), id="mode1"),
                                   pytest.param(dict(arm_dynamics=True), id="mode3")])
 def test_modes_not_ported_raise(mode, monkeypatch):
-    """Arm dynamics raise before any work, naming the ``ROADMAP.md`` item
-    that ports them.  Learned perception is ported: learned mode without a
-    NUNOCS predicter is refused with a ``ValueError`` before any work, and a
-    grasp predicter in oracle mode passes the mode check to the scene
-    set-up."""
+    """Every mode is ported, so none raises for being unported.  Learned
+    mode without a NUNOCS predicter is refused with a ``ValueError`` before
+    any work; a grasp predicter in oracle mode and arm dynamics pass the
+    mode check to the scene set-up."""
     def set_up(*a, **k):
         raise LookupError("set-up reached")
 
     monkeypatch.setattr(rgs, "setup_scene", set_up)
-    if "arm_dynamics" in mode:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            rgs.simulate_grasp_rounds("nut", n_rounds=1, device="cpu", verbose=False, **mode)
-    elif "oracle" in mode:
+    if "oracle" in mode:
         with pytest.raises(ValueError, match="NUNOCS predicter"):
             rgs.simulate_grasp_rounds("nut", n_rounds=1, device="cpu", verbose=False, **mode)
         with pytest.raises(LookupError, match="set-up reached"):

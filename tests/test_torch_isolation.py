@@ -15,7 +15,8 @@ from catgrasp_tpu_torch import bench, convert
 from catgrasp_tpu_torch.geom import collision_manager, csg, primitives, sdf, sdf_io
 from catgrasp_tpu_torch.grasp.gripper import Gripper
 from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
-from catgrasp_tpu_torch.pipelines import (generate_grasp, generate_pile_data, make_sdf,
+from catgrasp_tpu_torch.pipelines import (generate_affordance, generate_grasp,
+                                          generate_pile_data, make_canonical, make_sdf,
                                           rescore_grasp_db, train_grasp, train_nunocs, train_seg)
 from catgrasp_tpu_torch.pipelines import run_grasp_simulation as rgs
 from catgrasp_tpu_torch.predict.artifacts import load_predicters
@@ -31,6 +32,7 @@ import catgrasp_tpu_torch
 for m in pkgutil.walk_packages(catgrasp_tpu_torch.__path__, "catgrasp_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+from scripts import affordance_protocol  # the smoke's affordance comparisons
 names = {"jax", "flax", "msgpack", "catgrasp_tpu"}
 bad = sorted(n for n in sys.modules
              if n in names or any(n.startswith(p + ".") for p in names))
@@ -56,7 +58,9 @@ NEEDED = ("catgrasp_tpu_torch.geom.sdf", "catgrasp_tpu_torch.geom.sdf_io",
           "catgrasp_tpu_torch.nn.losses", "catgrasp_tpu_torch.nn.init",
           "catgrasp_tpu_torch.train.trainer", "catgrasp_tpu_torch.utils.profiling",
           "catgrasp_tpu_torch.pipelines.train_seg", "catgrasp_tpu_torch.pipelines.train_nunocs",
-          "catgrasp_tpu_torch.pipelines.train_grasp")
+          "catgrasp_tpu_torch.pipelines.train_grasp", "catgrasp_tpu_torch.kin.dynamics",
+          "catgrasp_tpu_torch.sim.arm", "catgrasp_tpu_torch.pipelines.generate_affordance",
+          "catgrasp_tpu_torch.pipelines.make_canonical")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -73,10 +77,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_the_ports_outputs_default_to_untracked_directories():
-    """``generate_grasp``, ``make_sdf``, the training data and the trainers
-    write where git tracks nothing by default (directories ``.gitignore``
-    lists), never over the JAX package's DBs, grids, scenes or
-    checkpoints."""
+    """``generate_grasp``, ``make_sdf``, the training data, the trainers,
+    the affordance labels and the canonical write where git tracks nothing
+    by default (directories ``.gitignore`` lists), never over the JAX
+    package's DBs, grids, scenes, checkpoints, labels or canonicals."""
     from catgrasp_tpu_torch.pipelines import (generate_grasp, generate_pile_data, make_sdf,
                                               pack_training_data, train_grasp, train_nunocs,
                                               train_seg)
@@ -94,7 +98,8 @@ def test_the_ports_outputs_default_to_untracked_directories():
                  pack_training_data.default_packed_dir("nut", "train"), *ckpt_dirs):
         assert any(path.startswith(d + "/") for d in ignored), path
     for out in (generate_grasp.DEFAULT_OUT_DIR, make_sdf.DEFAULT_OUT_DIR,
-                generate_pile_data.DEFAULT_OUT_DIR, trainer.DEFAULT_CKPT_ROOT):
+                generate_pile_data.DEFAULT_OUT_DIR, trainer.DEFAULT_CKPT_ROOT,
+                generate_affordance.DEFAULT_OUT_DIR, make_canonical.DEFAULT_OUT_DIR):
         assert out in ignored, out
         if os.path.isdir(os.path.join(REPO, ".git")):
             r = subprocess.run(["git", "ls-files", "--", out], cwd=REPO, capture_output=True,
@@ -144,6 +149,13 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
         lambda: train_seg.main(["--data_root", str(tmp_path)]),
         lambda: train_nunocs.main(["--data_root", str(tmp_path)]),
         lambda: train_grasp.main(["--data_root", str(tmp_path)]),
+        lambda: generate_affordance.generate_affordance(
+            "nut", "train", 0, {"grasp_poses": np.eye(4, dtype=np.float32)[None]}),
+        lambda: generate_affordance.main([
+            "--grasp_db", os.path.join(REPO, "dataset", "grasps", "nut_train_0_complete_grasp.npz"),
+            "--out_dir", str(tmp_path)]),
+        lambda: make_canonical.compute_canonical("nut", []),
+        lambda: make_canonical.main(["--out", str(tmp_path / "c.npz")]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):
