@@ -8,6 +8,12 @@
 * :class:`NocsTransferGraspSampler`: map a canonical grasp codebook through
   the estimated NUNOCS pose, expanded by the category's symmetries, and
   filter.
+* :class:`CombinedGraspSampler`: several samplers' outputs concatenated.
+
+Both samplers can center the object between the fingers
+(``center_ob_between_gripper``): the cone sampler shifts each candidate
+along its closing axis before the filter, the NOCS sampler zeroes its
+codebook's lateral object offsets.
 """
 from __future__ import annotations
 
@@ -157,12 +163,15 @@ class PointConeGraspSampler:
 
     def sample_grasps(self, points, normals, background_cloud, background_mask,
                       generator: torch.Generator, cam_in_world=None, nocs_pose=None,
-                      filter_ik=True, **filter_kw):
-        """Sample + augment + filter.  Returns (poses (K,4,4) in camera
-        frame, valid mask, stats) with static K."""
+                      filter_ik=True, center_ob_between_gripper=False, **filter_kw):
+        """Sample + augment (+ center the object between the fingers) +
+        filter.  Returns (poses (K,4,4) in camera frame, valid mask, stats)
+        with static K."""
         pts = torch.as_tensor(points, dtype=torch.float32)
         dev = pts.device
         poses = self.sample_grasp_poses(pts, normals, generator)
+        if center_ob_between_gripper:
+            poses = center_object_between_fingers(poses, pts)
         eye = torch.eye(4, device=dev)
         nocs_pose = eye if nocs_pose is None else torch.as_tensor(
             nocs_pose, dtype=torch.float32, device=dev)
@@ -179,13 +188,18 @@ class PointConeGraspSampler:
         )
 
 
+CENTER_CHUNK = 4096  # grasps a pass: bounds the (chunk, C, 3) grasp-frame cloud
+
+
 def center_object_between_fingers(poses: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Shift each grasp (K, 4, 4) along its closing axis so the object cloud
-    (C, 3) is centered between the fingers."""
-    pts_g = tf.transform_points(tf.pose_inverse(poses), points)  # (K, C, 3)
-    c = (torch.amax(pts_g[..., 1], dim=-1) + torch.amin(pts_g[..., 1], dim=-1)) / 2
+    (C, 3) is centered between the fingers, ``CENTER_CHUNK`` grasps a pass."""
     out = poses.clone()
-    out[:, :3, 3] = poses[:, :3, 3] + poses[:, :3, 1] * c[:, None]
+    for i in range(0, poses.shape[0], CENTER_CHUNK):
+        T = poses[i:i + CENTER_CHUNK]
+        pts_g = tf.transform_points(tf.pose_inverse(T), points)  # (chunk, C, 3)
+        c = (torch.amax(pts_g[..., 1], dim=-1) + torch.amin(pts_g[..., 1], dim=-1)) / 2
+        out[i:i + CENTER_CHUNK, :3, 3] = T[:, :3, 3] + T[:, :3, 1] * c[:, None]
     return out
 
 
@@ -199,15 +213,22 @@ class NocsTransferGraspSampler:
     canonical_scores: np.ndarray  # (K,) perturbation scores
     score_larger_than: float = 0.0
     max_n_grasp: int | None = None
+    center_ob_between_gripper: bool = False
 
     def __post_init__(self):
         """Keep the grasps scored at least ``score_larger_than``, the best
-        ``max_n_grasp`` of them."""
+        ``max_n_grasp`` of them; with ``center_ob_between_gripper``, zero
+        each kept grasp's object-in-grasp offset along the closing axis."""
         keep = self.canonical_scores >= self.score_larger_than
         g, s = self.canonical_grasps[keep], self.canonical_scores[keep]
         if self.max_n_grasp is not None and len(g) > self.max_n_grasp:
             order = np.argsort(-s)[: self.max_n_grasp]
             g, s = g[order], s[order]
+        if self.center_ob_between_gripper:
+            for i in range(len(g)):
+                ob_in_grasp = np.linalg.inv(g[i])
+                ob_in_grasp[1, 3] = 0.0
+                g[i] = np.linalg.inv(ob_in_grasp)
         self.canonical_grasps, self.canonical_scores = g, s
 
     def sample_grasps(self, nocs_pose, symmetry_tfs, background_cloud, background_mask,
@@ -229,3 +250,18 @@ class NocsTransferGraspSampler:
             t(background_mask, torch.bool), spec=self.gripper.spec, filter_ik=filter_ik,
             filter_approach=filter_approach, **filter_kw,
         )
+
+
+@dataclass
+class CombinedGraspSampler:
+    """Several samplers of one kind called with the same arguments: (the
+    concatenated poses, the concatenated valid masks, the list of their
+    stats)."""
+
+    samplers: list
+
+    def sample_grasps(self, **kwargs):
+        outs = [s.sample_grasps(**kwargs) for s in self.samplers]
+        poses = torch.cat([o[0] for o in outs])
+        valid = torch.cat([o[1] for o in outs])
+        return poses, valid, [o[2] for o in outs]

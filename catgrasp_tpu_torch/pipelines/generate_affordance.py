@@ -27,6 +27,7 @@ from ..geom import primitives as prim
 from ..sim import env_semantic as es
 from ..sim.env_grasp import GripperSpec
 from ..sim.types import build_shape_lib
+from ..utils.outputs import refuse_tracked
 
 DEFAULT_OUT_DIR = "dataset/affordance_torch"
 
@@ -113,6 +114,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs on the host)")
     args = ap.parse_args(argv)
+    refuse_tracked(args.out_dir)
 
     db = dict(np.load(args.grasp_db))
     out = generate_affordance(args.class_name, args.split, args.index, db,

@@ -37,6 +37,7 @@ from ..grasp.gripper import Gripper
 from ..grasp.sampler import PointConeGraspSampler
 from ..sim import env_grasp as eg
 from ..sim.types import build_shape_lib
+from ..utils.outputs import refuse_tracked
 
 # the port's DBs go here, never over the JAX package's dataset/grasps
 DEFAULT_OUT_DIR = "dataset/grasps_torch"
@@ -140,6 +141,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs on the host)")
     args = ap.parse_args(argv)
+    refuse_tracked(args.out_dir)
 
     cfg = load_config("config_grasp.yml")
     gripper = Gripper.default()

@@ -43,6 +43,7 @@ from ..render import raymarch
 from ..sim import engine, env_pile
 from ..sim.types import build_shape_lib
 from ..utils.metrics import StageClock
+from ..utils.outputs import refuse_tracked
 
 DEFAULT_OUT_DIR = "dataset/torch"
 N_CANDIDATES = 8  # camera poses drawn a scene; the first with the bin in frame wins
@@ -301,6 +302,7 @@ def main(argv=None, device=None):
     ap.add_argument("--device", default=device)
     args = ap.parse_args(argv)
     out = args.out_dir or default_out_dir(args.class_name, args.split)
+    refuse_tracked(out)
     return generate_scenes(args.class_name, args.split, args.n_scenes, out, seed=args.seed,
                            start=args.start, device=args.device)
 

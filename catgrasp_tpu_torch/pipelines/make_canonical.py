@@ -31,6 +31,7 @@ import torch
 
 from ..device import resolve_device
 from ..geom import primitives as prim
+from ..utils.outputs import refuse_tracked
 
 DEFAULT_OUT_DIR = "dataset/canonical_torch"
 AFFORDANCE_RADIUS = 0.05  # NUNOCS units: a canonical point farther from every label gets none
@@ -171,10 +172,11 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs on the host)")
     args = ap.parse_args(argv)
+    path = args.out or f"{DEFAULT_OUT_DIR}/{args.class_name}_canonical.npz"
+    refuse_tracked(path)
 
     dbs, affs = load_inputs(args.class_name, args.grasp_dir, args.affordance_dir)
     out = compute_canonical(args.class_name, dbs, affs, device=args.device)
-    path = args.out or f"{DEFAULT_OUT_DIR}/{args.class_name}_canonical.npz"
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez_compressed(path, **out)
     print(f"saved {path}: {len(out['canonical_grasps'])} codebook grasps, "

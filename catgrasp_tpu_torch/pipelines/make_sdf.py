@@ -19,6 +19,7 @@ import numpy as np
 from ..geom import primitives as prim
 from ..geom import sdf as sdflib
 from ..geom.sdf_io import write_sdf
+from ..utils.outputs import refuse_tracked
 
 # the port's grids go here, never over the JAX package's dataset/sdf
 DEFAULT_OUT_DIR = "dataset/sdf_torch"
@@ -51,6 +52,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs on the host)")
     args = ap.parse_args(argv)
+    refuse_tracked(args.out_dir)
 
     os.makedirs(args.out_dir, exist_ok=True)
     t0 = time.perf_counter()

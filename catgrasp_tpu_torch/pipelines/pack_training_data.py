@@ -19,6 +19,7 @@ import os
 import numpy as np
 
 from ..data import packed
+from ..utils.outputs import refuse_tracked
 from .generate_pile_data import DEFAULT_OUT_DIR, default_out_dir
 
 
@@ -49,6 +50,7 @@ def main(argv=None):
 
     root = args.root or default_out_dir(args.class_name, args.split)
     out = args.out_dir or default_packed_dir(args.class_name, args.split)
+    refuse_tracked(out)
     dbs = load_grasp_dbs(args.class_name, db_dir=args.db_dir)
     print(f"packing {root} -> {out} ({len(dbs)} grasp DBs)")
     meta = packed.pack_split(root, out, grasp_db=dbs, seed=args.seed)

@@ -33,14 +33,15 @@ def _load(model, state_dict: dict, dev):
 
 
 def load_predicters(artifact_dir: str = "artifacts", class_name: str = "nut",
-                    device=None) -> dict:
+                    device=None, roles=("nocs", "grasp", "seg")) -> dict:
     """The predicter dict the eval consumes, from
-    ``{artifact_dir}/{nunocs,grasp,seg}/``; a role whose directory is
-    missing is skipped (the eval's oracle or analytic path fills in)."""
+    ``{artifact_dir}/{nunocs,grasp,seg}/``, for the ``roles`` asked; a role
+    whose directory is missing is skipped (the eval's oracle or analytic
+    path fills in)."""
     dev = resolve_device(device)
     out = {}
     d = os.path.join(artifact_dir, "nunocs")
-    if os.path.isdir(d):
+    if "nocs" in roles and os.path.isdir(d):
         cfg = load_config("config_nunocs.yml")
         bins = cfg.get("ce_loss_bins", 100)
         model = PointNetSeg(3 * bins, cfg.get("input_channel", 6))
@@ -48,14 +49,14 @@ def load_predicters(artifact_dir: str = "artifacts", class_name: str = "nut",
             _load(model, convert.flax_state_dict(read_params(_ckpt(d))), dev), bins,
             cfg.get("n_pts", 2048))
     d = os.path.join(artifact_dir, "grasp")
-    if os.path.isdir(d):
+    if "grasp" in roles and os.path.isdir(d):
         cfg = load_config("config_grasp.yml")
         model = PointNetCls(len(cfg["classes"]) - 1, cfg.get("input_channel", 6))
         out["grasp"] = GraspPredicter(
             _load(model, convert.flax_state_dict(read_params(_ckpt(d))), dev),
             cfg.get("n_pts", 1024))
     d = os.path.join(artifact_dir, "seg")
-    if os.path.isdir(d):
+    if "seg" in roles and os.path.isdir(d):
         cfg = load_config("config_seg.yml")
         model = SegNet(voxel_size=float(cfg.get("voxel_size", 0.004)),
                        grid_dims=tuple(cfg.get("grid_dims", (96, 96, 48))))

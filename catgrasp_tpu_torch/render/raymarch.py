@@ -214,6 +214,31 @@ def render_batch(lib: ShapeLib, states: SceneState, params: SceneParams, K, cam_
     return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
+def render_chunked(lib: ShapeLib, state: SceneState, params: SceneParams, K, cam_in_world,
+                   H: int, W: int, env: StaticEnv | None = None, rows_per_chunk: int = 256,
+                   **kw) -> dict:
+    """``render`` in row strips of ``rows_per_chunk``: the label passes'
+    memory is bounded by a strip (a full-resolution frame of the reference
+    camera, 1544x2064, is 3.2 M rays).  A strip renders the frame's own
+    pixel rays by shifting the principal point cy by the strip's first row;
+    the last strip is padded back to ``rows`` rows and cropped, as the JAX
+    package does it.  Each strip is one march (one K2 launch on the GPU);
+    on the CPU the output equals ``render``'s bit for bit."""
+    rows = min(rows_per_chunk, H)
+    K = torch.as_tensor(K, dtype=torch.float32, device=state.pos.device)
+    outs = []
+    for r0 in range(0, H, rows):
+        crop = 0
+        if min(rows, H - r0) != rows:  # pad the last strip, crop after
+            r0 = H - rows
+            crop = rows - (H - len(outs) * rows)
+        Ks = K.clone()
+        Ks[1, 2] -= float(r0)
+        o = render(lib, state, params, Ks, cam_in_world, rows, W, env=env, **kw)
+        outs.append({k: v[crop:] for k, v in o.items()})
+    return {k: torch.cat([o[k] for o in outs], dim=0) for k in outs[0]}
+
+
 # --------------------------------------------------------------------------
 # a camera a scene: the march in the cameras' frames
 # --------------------------------------------------------------------------

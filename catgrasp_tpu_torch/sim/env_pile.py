@@ -5,10 +5,12 @@
 bodies.  Randomness comes from a ``torch.Generator`` in place of a
 ``jax.random`` key.  ``reset_batch`` and ``make_pile_batch`` do the same for
 a batch of scenes with a leading axis, where the JAX package uses ``vmap``.
+``add_duplicate_object_on_pile`` activates free body slots as duplicates of
+one shape above the bin.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 
 import torch
 
@@ -120,6 +122,56 @@ def settle_fixed(state: SceneState, params: SceneParams, lib: ShapeLib,
     """Fixed-step settle: no data-dependent trip count."""
     st = engine.rollout(state, params, lib, env, n_steps, dt=cfg.dt, narrowphase=narrowphase)
     return _cull_out_of_bin(st, cfg)
+
+
+def draw_duplicate_poses(generator: torch.Generator, n: int, cfg: PileConfig, device):
+    """Poses for ``n`` body slots above the bin: xy uniform over the bin's
+    inner footprint, z uniform in [0.05, 0.3], a normalised Gaussian
+    quaternion.  Returns (pos (n, 3), quat (n, 4)) on ``device``."""
+    g = generator
+
+    def draw(fn, *args):
+        return fn(*args, generator=g, device=g.device).to(device)
+
+    ix, iy, _ = cfg.bin_inner
+    half = torch.tensor([ix / 2, iy / 2], device=device)
+    xy = (-1.0 + 2.0 * draw(torch.rand, (n, 2))) * half
+    z = 0.05 + 0.25 * draw(torch.rand, (n,))
+    quat = tf.quat_normalize(draw(torch.randn, (n, 4)))
+    return torch.cat([xy, z[:, None]], dim=1), quat
+
+
+def add_duplicate_object_on_pile(generator: torch.Generator, state: SceneState,
+                                 params: SceneParams, shape_id: int, scale: float, n_ob: int,
+                                 cfg: PileConfig, lib: ShapeLib | None = None):
+    """Spawn ``n_ob`` duplicates of one shape at random poses above the bin:
+    the first ``n_ob`` inactive body slots become active at poses from
+    ``draw_duplicate_poses`` (drawn for every slot), at rest.  With ``lib``
+    those slots' parameters become ``shape_id`` at ``scale``; without it
+    they keep theirs.  Returns (state, params); settle afterwards.
+
+    The scene's slot count is fixed, so adding a body activates a free
+    slot."""
+    N, dev = state.pos.shape[0], state.pos.device
+    pos, quat = draw_duplicate_poses(generator, N, cfg, dev)
+    inactive = ~state.active
+    chosen = inactive & (torch.cumsum(inactive.int(), dim=0) <= n_ob)
+    c = chosen[:, None]
+    state = state.replace(
+        pos=torch.where(c, pos, state.pos),
+        quat=torch.where(c, quat, state.quat),
+        linvel=torch.where(c, 0.0, state.linvel),
+        angvel=torch.where(c, 0.0, state.angvel),
+        active=state.active | chosen,
+    )
+    if lib is not None:
+        fresh = SceneParams.create(lib, torch.full((N,), int(shape_id), device=dev),
+                                   torch.full((N,), float(scale), device=dev))
+        params = SceneParams(**{
+            f.name: torch.where(chosen.reshape((N,) + (1,) * (getattr(params, f.name).dim() - 1)),
+                                getattr(fresh, f.name), getattr(params, f.name))
+            for f in fields(params)})
+    return state, params
 
 
 def make_pile_batch(generator: torch.Generator, lib: ShapeLib, cfg: PileConfig, batch: int,

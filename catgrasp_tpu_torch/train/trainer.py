@@ -40,6 +40,7 @@ from ..nn.init import init_like_flax
 from ..predict import ckpt
 from ..utils import profiling
 from ..utils.metrics import MetricsLogger
+from ..utils.outputs import refuse_tracked
 
 DEFAULT_CKPT_ROOT = "artifacts_torch"  # the trainers' checkpoints: artifacts_torch/<net>
 
@@ -220,6 +221,9 @@ class Trainer:
     ckpt_dir: str = "artifacts_torch"
     best_train: float = field(default=float("inf"))
     best_val: float = field(default=float("inf"))
+
+    def __post_init__(self):
+        refuse_tracked(self.ckpt_dir)
 
     def fit(self, state: TrainState, n_epochs: int | None = None, log_every: int = 50,
             verbose: bool = True, max_seconds: float | None = None,

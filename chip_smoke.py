@@ -128,8 +128,23 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    through the same counted run as phase 7 (K1 and K2 held on its gate and
    frame), each ``dynamicize_schedule`` call timed with its largest
    |achieved - scheduled| joint error, and no host wait in one;
-17. a ``grasp_db``, a ``training``, an ``affordance``, an ``arm_dynamics`` and
-   a ``kernels`` JSON line, the card line, then ``{"ok": true, ...}``.
+17. the remaining modules: the reference camera (``Camera.from_config``,
+   1544 x 2064) over the main path's settled pile through
+   ``render_chunked`` (7 K2 launches, one a strip of 256 rows), each strip
+   held against the plain march, the kernel, plain and label-pass times and
+   the bound, ``depth_to_xyzmap`` against the frame's xyz, and the chunked
+   render against one pass at 384x512; a ``CombinedGraspSampler`` of two
+   NOCS-transfer samplers, one centred, on the main path's first segment
+   (4 K1 launches, each held against the plain version) and the centred
+   cone sampler; ``add_duplicate_object_on_pile`` and 100 steps,
+   ``save_state`` / ``restore_state`` and the two futures' difference,
+   ``scene_from_record`` on a training-data record; ``rescore_grasp_db
+   --write --rebalance`` on the drift probe's 256 poses; ``calibrate_bandwidth``
+   with the tracked seg net on the training-data scenes; the cluster
+   reducers on the card against the CPU;
+18. a ``grasp_db``, a ``training``, an ``affordance``, an ``arm_dynamics``, a
+   ``remaining_modules`` and a ``kernels`` JSON line, the card line, then
+   ``{"ok": true, ...}``.
 
 It imports nothing of the JAX package.  Without a GPU it exits non-zero
 before printing any result.
@@ -2179,6 +2194,428 @@ def dynamics_round(dev, card: str):
     return launches, out
 
 
+# --------------------------------------------------------------------------
+# the remaining modules: the reference camera, the samplers' centering and
+# CombinedGraspSampler, the scene tools, the rescore, the calibration and
+# the cluster reducers
+# --------------------------------------------------------------------------
+
+ROWS_PER_CHUNK = 256  # render_chunked's default: 7 strips a 1544 x 2064 frame
+
+
+def launch_counts(zero: bool = False) -> dict:
+    """Every kernel's launch count (set to 0 first with ``zero``)."""
+    from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
+    fns = {"box_hits": collision.box_hits, "march_csg": render_march.march_csg,
+           "rollout_fused": fused_rollout.rollout_fused}
+    for fn in fns.values():
+        fn.launches = 0 if zero else fn.launches
+    return {k: fn.launches for k, fn in fns.items()}
+
+
+def fullres_frame(scene, state, params) -> dict:
+    """The reference camera (``Camera.from_config`` on ``config.yml``: its K,
+    1544 x 2064) over the front half's settled nut pile through
+    ``render_chunked`` in strips of 256 rows, with the launch counts set to
+    0 just before and read just after (one K2 launch a strip); then each
+    strip's rays marched again by K2 and by the plain march: agreement,
+    kernel, plain and label-pass ms, the bound from the bodies each ray's
+    line meets (the padded last strip's repeated rows counted once);
+    ``depth_to_xyzmap`` of the frame's depth against its xyz; and the
+    chunked render against one pass at the eval's 384 x 512."""
+    from catgrasp_tpu_torch.config.loader import load_config
+    from catgrasp_tpu_torch.core.camera import Camera, depth_to_xyzmap
+    from catgrasp_tpu_torch.ops import render_march as rm
+    from catgrasp_tpu_torch.render import raymarch
+    from catgrasp_tpu_torch.sim.types import as_batch
+
+    dev = state.pos.device
+    camera = Camera.from_config(load_config("config.yml"))
+    H, W, rows = camera.H, camera.W, ROWS_PER_CHUNK
+    K = torch.as_tensor(camera.K, device=dev)
+    cam = torch.as_tensor(scene.cam, dtype=torch.float32, device=dev)
+    env, lib = scene.env_bin, scene.lib
+    launch_counts(zero=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame = raymarch.render_chunked(lib, state, params, K, cam, H, W, env=env,
+                                    rows_per_chunk=rows)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = launch_counts()
+    n_strips = -(-H // rows)
+    if launches != {"box_hits": 0, "march_csg": n_strips, "rollout_fused": 0}:
+        fail(f"render_chunked at {H}x{W}: launches {launches}, expected {n_strips} of K2")
+    if frame["depth"].shape != (H, W) or not all(torch.isfinite(v).all() for v in frame.values()):
+        fail("the full-resolution frame has the wrong shape or non-finite values")
+
+    kw = dict(env=env, n_steps=64, hit_eps=raymarch.HIT_EPS)
+    tot = {"ms": 0.0, "wrapper_ms": 0.0, "plain_ms": 0.0, "shade_ms": 0.0, "need": 0.0,
+           "agree": 0, "err": 0.0}
+    seen_k, seen_p = set(), set()
+    for r0 in range(0, H, rows):
+        crop = 0
+        if H - r0 < rows:  # the padded last strip: its first rows were rendered already
+            crop, r0 = rows - (H - r0), H - rows
+        Ks = K.clone()
+        Ks[1, 2] -= float(r0)
+        o_w, d_w, d_cam, tmax = raymarch.camera_rays(Ks, cam, rows, W)
+
+        def march(o_w=o_w, d_w=d_w, tmax=tmax):
+            return rm.march_csg(lib, state, params, o_w, d_w, tmax, hw=(rows, W), **kw)
+
+        t_k = march()
+        plain = {}
+        tot["plain_ms"] += cuda_ms(lambda: plain.update(t=rm.march_csg_plain(
+            lib, state, params, o_w, d_w, tmax, **kw)), 1, warm_up=False)
+        outs = [raymarch.shade(lib, state, params, cam, rows, W, env, d_w, d_cam, tmax, t)
+                for t in (t_k, plain["t"])]
+        tot["shade_ms"] += cuda_ms(lambda: raymarch.shade(lib, state, params, cam, rows, W, env,
+                                                          d_w, d_cam, tmax, t_k), 3)
+        seg_k, seg_p = outs[0]["seg"][crop:], outs[1]["seg"][crop:]
+        tot["agree"] += int((seg_k == seg_p).sum())
+        both = (seg_k == seg_p) & (seg_p != -1)
+        if both.any():
+            tot["err"] = max(tot["err"], float((outs[0]["depth"][crop:] - outs[1]["depth"][crop:])
+                                               [both].abs().max()))
+        seen_k |= set(seg_k.unique().tolist())
+        seen_p |= set(seg_p.unique().tolist())
+        tot["wrapper_ms"] += cuda_ms(march, 10)
+        ms = kernel_ms(march, "march_csg_kernel", reps=10)
+        tot["ms"] += ms if ms is not None else cuda_ms(march, 10)
+        tot["need"] += march_need_batch(rm, lib, as_batch(state), as_batch(params), o_w,
+                                        d_w[crop * W:], tmax[crop * W:], 64, raymarch.HIT_EPS,
+                                        env)[0]
+    P = H * W
+    agree = tot["agree"] / P
+    nbytes = P * (12 + 4 + 4)
+    bound, bound_by = bound_of(tot["need"], nbytes)
+    xyz = depth_to_xyzmap(frame["depth"], K)
+    hit = frame["seg"] != -1
+    xyz_err = float((xyz - frame["xyz"])[hit].abs().max())
+    print(f"K2 march_csg [the reference camera, fx {float(camera.K[0, 0]):.2f}] {H}x{W} "
+          f"({P:,} rays) in "
+          f"{n_strips} strips of {rows} rows, {state.pos.shape[0]} bodies, "
+          f"{env.center.shape[0]} env boxes: {launches['march_csg']} launches; seg agrees with "
+          f"the plain march on {agree:.6f} of pixels, depth max |err| {tot['err']:.3e} m where "
+          f"it agrees, bodies seen {sorted(seen_k)} vs {sorted(seen_p)}; kernel "
+          f"{tot['ms']:.4f} ms a frame ({tot['ms'] / n_strips:.4f} a strip; the calls, CUDA "
+          f"events, {tot['wrapper_ms']:.4f} ms), plain "
+          f"{tot['plain_ms']:.1f} ms, label passes (shade) {tot['shade_ms']:.2f} ms, bound "
+          f"{bound:.4f} ms, {bound_by} ({tot['need']:.3e} ops, {nbytes:.3e} bytes); "
+          f"render_chunked wall {wall_ms:.1f} ms; depth_to_xyzmap against the render's xyz: "
+          f"max |err| {xyz_err:.3e} m on {int(hit.sum()):,} pixels", flush=True)
+    if agree <= 0.995 or tot["err"] > 2e-3 or seen_k != seen_p:
+        fail("march_csg at the reference camera disagrees with its plain version")
+    if xyz_err > 1e-4:
+        fail("depth_to_xyzmap of the full-resolution depth disagrees with the render's xyz")
+
+    # chunked against one pass at the eval's 384 x 512 (2 strips)
+    Ke = torch.as_tensor(scene.K, dtype=torch.float32, device=dev)
+    one = raymarch.render(lib, state, params, Ke, cam, scene.H, scene.W, env=env)
+    n0 = rm.march_csg.launches
+    chk = raymarch.render_chunked(lib, state, params, Ke, cam, scene.H, scene.W, env=env,
+                                  rows_per_chunk=rows)
+    torch.cuda.synchronize()
+    n_eval = rm.march_csg.launches - n0
+    eval_agree = float((chk["seg"] == one["seg"]).float().mean())
+    both = (chk["seg"] == one["seg"]) & (one["seg"] != -1)
+    eval_err = float((chk["depth"] - one["depth"])[both].abs().max())
+    print(f"render_chunked against one pass at {scene.H}x{scene.W} ({n_eval} K2 launches, one a "
+          f"strip of {rows} rows): seg agrees on {eval_agree:.6f} of pixels, depth max |err| "
+          f"{eval_err:.3e} m where it agrees", flush=True)
+    if n_eval != -(-scene.H // rows) or eval_agree <= 0.995 or eval_err > 2e-3:
+        fail("render_chunked disagrees with a single-pass render at the eval's frame")
+    return {"shapes": f"{H}x{W} rays (the reference camera, config.yml) in {n_strips} strips of "
+                      f"{rows} rows, {state.pos.shape[0]} bodies, {env.center.shape[0]} env "
+                      f"boxes, 64 steps",
+            "launches": launches["march_csg"], "seg_agree": agree, "max_abs_err": tot["err"],
+            "ms": tot["ms"], "ms_per_strip": tot["ms"] / n_strips, "timing": "torch.profiler",
+            "wrapper_ms": tot["wrapper_ms"],
+            "plain_ms": tot["plain_ms"], "bound_ms": bound, "bound_by": bound_by,
+            "label_pass_ms": tot["shade_ms"], "render_chunked_wall_ms": wall_ms,
+            "xyz_max_err": xyz_err,
+            "chunked_vs_single_pass_384x512": {"launches": n_eval, "seg_agree": eval_agree,
+                                               "max_abs_err": eval_err}}
+
+
+def sampler_phase(dev, scene, state, params) -> dict:
+    """A ``CombinedGraspSampler`` of two NOCS-transfer samplers, the second
+    centred (``center_ob_between_gripper``), on the front half's first
+    segment (its oracle NUNOCS pose, its collision subsample and
+    background), with the launch counts set to 0 just before and read just
+    after (2 K1 launches a filter call, 4 in all); K1 held against its plain
+    version on each of the four launches' own inputs; then the cone
+    sampler with its centering on the same segment (2 launches)."""
+    from catgrasp_tpu_torch.config.loader import load_config
+    from catgrasp_tpu_torch.grasp.sampler import CombinedGraspSampler, NocsTransferGraspSampler
+    from catgrasp_tpu_torch.ops import collision
+    from catgrasp_tpu_torch.pipelines import run_grasp_simulation as rgs
+
+    res = rgs.attempt_front(scene, state, params, np.random.default_rng(0),
+                            torch.Generator(device=dev).manual_seed(0))
+    if res.found is None:
+        fail("the front half found no segment for the samplers")
+    f, rng = res.found, np.random.default_rng(1)
+    ids = rng.choice(len(f.pts), min(len(f.pts), rgs.MAX_COLLISION_PTS), replace=False)
+    bg = res.xyz[f.bg_m]
+    bg = bg[rng.choice(len(bg), min(len(bg), rgs.MAX_BACKGROUND_PTS), replace=False)]
+    can = dict(np.load(os.path.join(REPO, "dataset", "nut_canonical.npz")))
+    cfg = load_config("config_run.yml")
+
+    def nocs(center):
+        return NocsTransferGraspSampler(
+            scene.gripper, can["canonical_grasps"], can["canonical_grasp_scores"],
+            score_larger_than=float(cfg.get("nocs_grasp_sampler_score_larger_than", 0.95)),
+            max_n_grasp=int(cfg.get("nocs_grasp_sampler_max_n_grasp", 10000)),
+            center_ob_between_gripper=center)
+
+    combined = CombinedGraspSampler([nocs(False), nocs(True)])
+    bg_t = torch.as_tensor(bg, device=dev)
+    bg_mask = torch.ones(len(bg), dtype=torch.bool, device=dev)
+    calls, entry = [], collision.box_hits_depths
+
+    def recorder(*args):
+        calls.append((args, entry(*args)))
+        return calls[-1][1]
+
+    launch_counts(zero=True)
+    collision.box_hits_depths = recorder
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        poses, valid, stats = combined.sample_grasps(
+            nocs_pose=torch.as_tensor(f.nocs_pose, device=dev), symmetry_tfs=scene.sym,
+            background_cloud=bg_t, background_mask=bg_mask, collision_cloud=f.pts[ids],
+            collision_mask=np.ones(len(ids), bool), cam_in_world=scene.cam_in_base,
+            filter_ik=True, adjust_depth=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        collision.box_hits_depths = entry
+    launches = launch_counts()
+    half = poses.shape[0] // 2
+    n_valid = [int(valid[:half].sum()), int(valid[half:].sum())]
+    print(f"CombinedGraspSampler (2 NOCS-transfer samplers, the second centred) on segment "
+          f"{f.target}: {poses.shape[0]:,} candidates, valid {n_valid}, {wall:.3f} s; stats "
+          f"{json.dumps([{k: int(v) for k, v in s.items()} for s in stats])}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    if launches["box_hits"] != 4 or len(calls) != 4 or launches["march_csg"] != 0:
+        fail(f"the combined sampler launched K1 {launches['box_hits']} times: expected 4")
+    if not isinstance(stats, list) or len(stats) != 2 or sum(n_valid) == 0:
+        fail("the combined sampler gave no valid candidates")
+    names = ("plain, open gripper", "plain, closing volume", "centred, open gripper",
+             "centred, closing volume")
+    parts = [measure_box_hits(f"combined sampler, {name}", collision, *args, hit_k=hit)
+             for name, (args, hit) in zip(names, calls)]
+    gate = add_up(parts)
+    bound, bound_by = bound_of(gate["ops"], gate["bytes"])
+    print(f"K1 box_hits, the combined sampler's 4 launches: kernel {gate['ms']:.4f} ms, "
+          f"plain {gate['plain_ms']:.3f} ms, bound {bound:.4f} ms ({bound_by})", flush=True)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n0 = collision.box_hits.launches
+    cone = scene.cone.sample_grasps(
+        torch.as_tensor(f.pts[ids], device=dev), torch.as_tensor(f.nrm[ids], device=dev),
+        background_cloud=bg_t, background_mask=bg_mask, generator=gen,
+        cam_in_world=scene.cam_in_base, filter_ik=True, adjust_depth=True,
+        center_ob_between_gripper=True)
+    torch.cuda.synchronize()
+    cone_launches = collision.box_hits.launches - n0
+    print(f"the cone sampler with center_ob_between_gripper on segment {f.target}: "
+          f"{cone[0].shape[0]:,} candidates, {int(cone[1].sum())} valid, {cone_launches} K1 "
+          f"launches", flush=True)
+    if cone_launches != 2 or not torch.isfinite(cone[0]).all():
+        fail("the centred cone sampler did not run its filter's 2 K1 launches")
+    return {"launches": launches, "n_candidates": int(poses.shape[0]), "n_valid": n_valid,
+            "wall_s": wall, "cone_centred_valid": int(cone[1].sum()),
+            "k1": {"shapes": f"the combined sampler's 4 launches on the front half's segment: "
+                             f"P={half:,} a sampler, the collision subsample ({len(ids)} "
+                             f"points, 3 open boxes) and the background ({len(bg):,} points, "
+                             f"closing box); A=7, D=4",
+                   "mismatch_frac": gate["n_diff"] / gate["n_entries"], "ms": gate["ms"],
+                   "wrapper_ms": gate["wrapper_ms"], "plain_ms": gate["plain_ms"],
+                   "bound_ms": bound, "bound_by": bound_by}}
+
+
+def scene_tools_phase(dev, scene, state, params, scenes_dir: str) -> dict:
+    """``add_duplicate_object_on_pile`` on the front half's settled pile
+    (two free slots made active as nut duplicates), then 100 engine steps;
+    ``save_state`` and ``restore_state`` (on the card) and the largest
+    difference between the two futures of 100 steps (the engine's float
+    scatter-adds may not be deterministic on the card); ``scene_from_record``
+    on a scene record that the training-data phase wrote."""
+    from catgrasp_tpu_torch.core import transforms as tf
+    from catgrasp_tpu_torch.pipelines import generate_pile_data as gpd
+    from catgrasp_tpu_torch.sim import engine, env_pile, snapshot
+    from catgrasp_tpu_torch.sim.types import SceneParams, SceneState
+
+    n_free = 2
+
+    def grow(t, row):  # n_free more body slots holding ``row``
+        return torch.cat([t, row.expand((n_free,) + t.shape[1:])])
+
+    st = SceneState(pos=grow(state.pos, torch.zeros(3, device=dev)),
+                    quat=grow(state.quat, torch.tensor([1.0, 0, 0, 0], device=dev)),
+                    linvel=grow(state.linvel, torch.zeros(3, device=dev)),
+                    angvel=grow(state.angvel, torch.zeros(3, device=dev)),
+                    active=grow(state.active, torch.zeros((), dtype=torch.bool, device=dev)))
+    par = SceneParams(**{k: grow(getattr(params, k), getattr(params, k)[0])
+                         for k in ("shape_id", "scale", "mass", "inertia", "friction")})
+    n_active = int(st.active.sum())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    st, par = env_pile.add_duplicate_object_on_pile(gen, st, par, int(params.shape_id[0]), 1.0,
+                                                    n_free, scene.pile_cfg, scene.lib)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    settled = engine.rollout(st, par, scene.lib, scene.env_bin, 100)
+    torch.cuda.synchronize()
+    dup_s = time.perf_counter() - t0
+    new = settled.pos[-n_free:]
+    print(f"add_duplicate_object_on_pile: {n_active} -> {int(st.active.sum())} active bodies, "
+          f"spawned at z {[round(float(z), 4) for z in st.pos[-n_free:, 2]]}; after 100 steps "
+          f"({dup_s:.2f} s) at z {[round(float(z), 4) for z in new[:, 2]]}", flush=True)
+    if int(st.active.sum()) != n_active + n_free or not torch.isfinite(settled.pos).all():
+        fail("add_duplicate_object_on_pile did not add two settling bodies")
+
+    snap = snapshot.save_state(settled)
+    later = engine.rollout(settled, par, scene.lib, scene.env_bin, 100)
+    restored = snapshot.restore_state(snap)
+    same = all(torch.equal(getattr(restored, k).cpu(), getattr(snap, k))
+               for k in ("pos", "quat", "linvel", "angvel", "active"))
+    later2 = engine.rollout(restored, par, scene.lib, scene.env_bin, 100)
+    future_diff = float((later.pos - later2.pos).abs().max())
+    print(f"save_state / restore_state: the restored state equals the snapshot: {same} (on "
+          f"{restored.pos.device}); the two futures of 100 steps differ by at most "
+          f"{future_diff:.3e} m", flush=True)
+    if not same or restored.pos.device.type != "cuda" or not np.isfinite(future_diff):
+        fail("restore_state did not give the snapshot back on the card")
+
+    path = sorted(p for p in os.listdir(scenes_dir) if p.endswith(".npz"))[0]
+    rec = dict(np.load(os.path.join(scenes_dir, path)))
+    lib = gpd.category_lib("nut", "train", device=dev)
+    rs, rp = snapshot.scene_from_record(rec, lib)
+    pose_err = float((tf.pose_from_qt(rs.quat, rs.pos).cpu()
+                      - torch.as_tensor(rec["ob_in_world"])).abs().max())
+    print(f"scene_from_record on {path} ({int(rs.active.sum())} of {rs.pos.shape[0]} bodies "
+          f"active, at rest): poses within {pose_err:.2e} of the record's", flush=True)
+    if pose_err > 1e-5 or not torch.equal(rp.shape_id.cpu(), torch.as_tensor(rec["shape_id"]).long()):
+        fail("scene_from_record does not restore the record's bodies")
+    return {"duplicate_settle_s": dup_s, "future_max_diff_m": future_diff,
+            "record_pose_err": pose_err}
+
+
+def rescore_phase(dev, work: str) -> dict:
+    """``rescore_grasp_db --write --rebalance`` on a copy of ``nut_train_0``
+    holding the 256 poses of the drift probe (12,800 rollouts of 100
+    steps), written under the work directory: the row, the written keys,
+    ``score_version`` and the balanced DB."""
+    from catgrasp_tpu_torch.pipelines import rescore_grasp_db as rdb
+
+    src = os.path.join(REPO, "dataset", "grasps", "nut_train_0_complete_grasp.npz")
+    d = dict(np.load(src, allow_pickle=True))
+    ids = np.random.default_rng(0).choice(len(d["scores"]), 256, replace=False)
+    d.update(grasp_poses=d["grasp_poses"][ids], scores=d["scores"][ids])
+    os.makedirs(os.path.join(work, "grasps_in"))
+    db = os.path.join(work, "grasps_in", os.path.basename(src))
+    np.savez_compressed(db, **d)
+    out_dir, rows = os.path.join(work, "grasps_out"), os.path.join(work, "rescore.jsonl")
+    launch_counts(zero=True)
+    t0 = time.perf_counter()
+    rdb.main(["--db", db, "--write", "--rebalance", "--out_dir", out_dir, "--out", rows])
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    row = json.loads(open(rows).read().splitlines()[-1])
+    written = np.load(os.path.join(out_dir, os.path.basename(src)))
+    bal = np.load(os.path.join(out_dir, "nut_train_0_balanced_grasp.npz"))
+    keys = sorted(written.files)
+    print(f"rescore_grasp_db --write --rebalance on 256 poses of nut_train_0 ({wall:.2f} s, "
+          f"launches {json.dumps(launches)}): written keys {keys}, score_version "
+          f"{int(written['score_version'])} ({written['score_version'].dtype}), "
+          f"{row['n_balanced']} balanced; Spearman against the stored v3 scores "
+          f"{row['spearman']}, mean |diff| {row['mean_abs_diff']}; row {json.dumps(row)}",
+          flush=True)
+    if keys != sorted(d) or int(written["score_version"]) != 3 \
+            or written["scores"].dtype != np.float32 or len(bal["scores"]) != row["n_balanced"] \
+            or not row["written"] or row["spearman"] < 0.90 or row["mean_abs_diff"] > 0.07:
+        fail("the rescore's written DB is not the DB with fresh v3 scores")
+    return {"wall_s": wall, "launches": launches, "row": row, "keys": keys}
+
+
+def calibration_phase(dev, work: str, scenes_dir: str) -> dict:
+    """``calibrate_bandwidth`` with the tracked nut seg net (a copy under the
+    work directory, where it writes calib.json) on the training-data
+    phase's first 6 scenes."""
+    from catgrasp_tpu_torch.pipelines import calibrate_bandwidth as cb
+
+    art = os.path.join(work, "calib", "nut")
+    os.makedirs(os.path.join(art, "seg"))
+    shutil.copy(os.path.join(REPO, "artifacts_tracked", "nut", "seg", "best_val.ckpt"),
+                os.path.join(art, "seg"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = cb.main(["--class_name", "nut", "--artifacts", art, "--val_dir", scenes_dir])
+    wall = time.perf_counter() - t0
+    if out is None or not os.path.exists(os.path.join(art, "seg", "calib.json")):
+        fail("calibrate_bandwidth wrote no calib.json")
+    with open(os.path.join(art, "seg", "calib.json")) as fh:
+        written = json.load(fh)
+    print(f"calibrate_bandwidth (the tracked nut seg net, {written['n_scenes']} training-data "
+          f"scenes, {wall:.2f} s): bandwidth {written['bandwidth']}, stats "
+          f"{json.dumps(written['stats'])} (the tracked calib.json: 0.01)", flush=True)
+    if written != out or not 0.006 <= written["bandwidth"] <= 0.02:
+        fail("calibrate_bandwidth's calib.json is not what it computed")
+    return {"wall_s": wall, **written}
+
+
+def reducers_phase(dev) -> dict:
+    """``connected_components`` and the ``segment_*`` reducers on 4,096
+    points in 12 blobs on the card against the same calls on the CPU:
+    labels equal, reductions within 1e-6."""
+    from catgrasp_tpu_torch.nn import cluster
+
+    rng = np.random.default_rng(0)
+    centers = rng.uniform(-0.2, 0.2, (12, 3))
+    pts = (centers[rng.integers(0, 12, 4096)] + rng.normal(0, 0.004, (4096, 3))).astype(
+        np.float32)
+    mask = rng.uniform(size=4096) > 0.05
+    vals = rng.normal(size=(4096, 3)).astype(np.float32)
+    res = {}
+    for d in (dev, torch.device("cpu")):
+        p, m, v = (torch.as_tensor(x, device=d) for x in (pts, mask, vals))
+        lab = cluster.connected_components(p, 0.01, m)
+        seg = torch.unique(lab[lab >= 0], return_inverse=True)[1]
+        dense = torch.full_like(lab, -1)
+        dense[lab >= 0] = seg
+        n = int(seg.max()) + 1
+        res[d.type] = [lab] + [getattr(cluster, f"segment_{r}")(v, dense, n).cpu()
+                               for r in ("mean", "min", "max")]
+    same = torch.equal(res["cuda"][0].cpu(), res["cpu"][0])
+    err = max(float((a - b).abs().max()) for a, b in zip(res["cuda"][1:], res["cpu"][1:]))
+    n_comp = int(res["cpu"][1].shape[0])
+    print(f"connected_components on 4,096 points (12 blobs, 5% masked): {n_comp} components, "
+          f"labels on the card equal the CPU's: {same}; segment mean/min/max max |diff| "
+          f"{err:.2e}", flush=True)
+    if not same or err > 1e-6:
+        fail("the cluster reducers on the card disagree with the CPU")
+    return {"components": n_comp, "labels_equal": same, "max_abs_diff": err}
+
+
+def remaining_modules_phase(dev, scene, state, params, work: str, scenes_dir: str) -> dict:
+    """Every module of the last slice on the card, each with its launch
+    counts set to 0 just before and read just after."""
+    t0 = time.perf_counter()
+    out = {"fullres": fullres_frame(scene, state, params),
+           "samplers": sampler_phase(dev, scene, state, params),
+           "scene_tools": scene_tools_phase(dev, scene, state, params, scenes_dir),
+           "rescore": rescore_phase(dev, work),
+           "calibration": calibration_phase(dev, work, scenes_dir),
+           "reducers": reducers_phase(dev)}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"remaining modules: {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 def no_host_waits(label: str, fn) -> None:
     """Call ``fn`` once to warm it up, then again under
     ``torch.cuda.set_sync_debug_mode("warn")``: fail if any operation in it
@@ -2351,6 +2788,8 @@ def run_all(dev, logs, card, work) -> None:
     training = training_phase(dev, packed_dir, work)
     aff_launches, affordance = affordance_phase(dev, card)
     dyn_launches, dyn = dynamics_round(dev, card)
+    remaining = remaining_modules_phase(dev, scene, state, params, work,
+                                        os.path.join(work, "train"))
 
     from catgrasp_tpu_torch.ops import render_march
     k1_bound, k1_by = bound_of(k1["ops"], k1["bytes"])
@@ -2400,6 +2839,8 @@ def run_all(dev, logs, card, work) -> None:
          "launches_affordance": aff_launches["box_hits"],
          "launches_dynamics_round": dyn_launches["box_hits"],
          "at_nocs_gate_dynamics": nocs_gate_row("arm-dynamics round", "nut", dyn["k1"]),
+         "launches_combined_sampler": remaining["samplers"]["launches"]["box_hits"],
+         "at_combined_sampler": remaining["samplers"]["k1"],
          "at_grasp_db_gate": {
              "shapes": f"the grasp DB's collision gate on nut/train/0's own inputs: "
                        f"P={grasp_db['k1']['P']}; the 200-point object cloud (3 open boxes) "
@@ -2441,6 +2882,10 @@ def run_all(dev, logs, card, work) -> None:
          "launches_dynamics_round": dyn_launches["march_csg"],
          "at_dynamics_round": {k: dyn["k2"][k] for k in (
              "shapes", "seg_agree", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+         "launches_fullres_frame": remaining["fullres"]["launches"],
+         "at_fullres_frame": {k: remaining["fullres"][k] for k in (
+             "shapes", "seg_agree", "max_abs_err", "ms", "ms_per_strip", "timing", "wrapper_ms",
+             "plain_ms", "bound_ms", "bound_by", "label_pass_ms")},
          "at_training_data": {
              "frames": {k: tdata["k2_frames"][k] for k in (
                  "shapes", "seg_agree", "seg_agree_bodies", "bodies_seen_equal",
@@ -2464,6 +2909,8 @@ def run_all(dev, logs, card, work) -> None:
          "launches_training_data": td_launches["rollout_fused"],
          "launches_affordance": aff_launches["rollout_fused"],
          "launches_dynamics_round": dyn_launches["rollout_fused"],
+         "launches_combined_sampler": remaining["samplers"]["launches"]["rollout_fused"],
+         "launches_rescore": remaining["rescore"]["launches"]["rollout_fused"],
          "max_abs_err": k3["max_abs_err"], "within_tol_frac": k3["within_tol_frac"],
          "ms": k3["ms"], "wrapper_ms": k3["wrapper_ms"], "prepare_ms": k3["prepare_ms"],
          "timing": k3["timing"], "plain_ms": k3["plain_ms"], "engine_ms": k3["engine_ms"],
@@ -2479,6 +2926,11 @@ def run_all(dev, logs, card, work) -> None:
     print(json.dumps({"affordance": affordance}), flush=True)
     print(json.dumps({"arm_dynamics": {k: dyn[k] for k in (
         "tally", "attempts", "stage_s", "wall_s", "launches", "dynamicize")}}), flush=True)
+    print(json.dumps({"remaining_modules": {
+        "fullres": remaining["fullres"],
+        "samplers": {k: v for k, v in remaining["samplers"].items() if k != "k1"},
+        **{k: remaining[k] for k in ("scene_tools", "rescore", "calibration", "reducers",
+                                     "wall_s")}}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
 
 

@@ -8,6 +8,7 @@ and sampler draws are carried over as data.  Physics is chaotic, so whole
 rollouts are held by outcome (success on >= 90% of rollouts, scores within
 2/trials on >= 90% of grasps); the rollout's first steps are held to the
 engine tests' tolerance."""
+import json
 import os
 
 import jax
@@ -288,9 +289,11 @@ def test_make_sdf_one_matches_jax_bake():
     assert (values < 0).any() and (values > 0).any()
 
 
-def test_rescore_probe_matches_the_jax_script(nut):
+def test_rescore_probe_matches_the_jax_script(nut, tmp_path, monkeypatch):
     """The drift probe re-scores the subsample the JAX script draws, and
-    ranks as its ``spearman_np`` does (ties by argsort)."""
+    ranks as its ``spearman_np`` does (ties by argsort); its row has the JAX
+    script's keys and values, rounded as the script rounds them, on the
+    same stored and fresh scores."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "rescore_grasp_db_jax", os.path.join(REPO, "scripts", "rescore_grasp_db.py"))
@@ -308,7 +311,20 @@ def test_rescore_probe_matches_the_jax_script(nut):
     np.testing.assert_array_equal(stored, scores[ids])
     assert fresh.shape == (3,) and set(np.unique(fresh)) <= {0.0, 0.5, 1.0}
     row = prdb.drift_row(path, stored, fresh, 2, 0.0)
-    assert row["n"] == 3 and row["stored_mean"] == pytest.approx(float(stored.mean()))
+    assert row["n"] == 3 and row["stored_mean"] == pytest.approx(float(stored.mean()), abs=1e-4)
+
+    fresh = (rng.integers(0, 51, 256) / 50).astype(np.float32)  # a probe's worth, with ties
+    ids = np.random.default_rng(0).choice(4096, 256, replace=False)
+    monkeypatch.setattr(jscript, "rescore", lambda db_path, n, trials, seed: (
+        d, ids, scores[ids], fresh, 3.456))
+    out = tmp_path / "rows.jsonl"
+    import types
+    jscript.run_one(types.SimpleNamespace(trials=50, seed=1234, out=str(out), write=False,
+                                          rebalance=False, noise_floor=False), path, 256, 3)
+    jrow = json.loads(out.read_text())
+    row = prdb.drift_row(path, scores[ids], fresh, 50, 3.456)
+    assert list(row) == list(jrow) and row == jrow
+    assert row["score_version_new"] == 3 and row["wall_s"] == 3.5
 
 
 def test_make_sdf_main_writes_grids_and_sdfgen_files(tmp_path):

@@ -15,12 +15,13 @@ from catgrasp_tpu_torch import bench, convert
 from catgrasp_tpu_torch.geom import collision_manager, csg, primitives, sdf, sdf_io
 from catgrasp_tpu_torch.grasp.gripper import Gripper
 from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
-from catgrasp_tpu_torch.pipelines import (generate_affordance, generate_grasp,
-                                          generate_pile_data, make_canonical, make_sdf,
-                                          rescore_grasp_db, train_grasp, train_nunocs, train_seg)
+from catgrasp_tpu_torch.pipelines import (calibrate_bandwidth, generate_affordance,
+                                          generate_grasp, generate_pile_data, make_canonical,
+                                          make_sdf, rescore_grasp_db, train_grasp, train_nunocs,
+                                          train_seg)
 from catgrasp_tpu_torch.pipelines import run_grasp_simulation as rgs
 from catgrasp_tpu_torch.predict.artifacts import load_predicters
-from catgrasp_tpu_torch.sim import engine, env_pile
+from catgrasp_tpu_torch.sim import engine, env_pile, snapshot
 from catgrasp_tpu_torch.sim.types import SceneState, build_shape_lib, stack_scenes
 
 torch.set_num_threads(2)
@@ -60,7 +61,9 @@ NEEDED = ("catgrasp_tpu_torch.geom.sdf", "catgrasp_tpu_torch.geom.sdf_io",
           "catgrasp_tpu_torch.pipelines.train_seg", "catgrasp_tpu_torch.pipelines.train_nunocs",
           "catgrasp_tpu_torch.pipelines.train_grasp", "catgrasp_tpu_torch.kin.dynamics",
           "catgrasp_tpu_torch.sim.arm", "catgrasp_tpu_torch.pipelines.generate_affordance",
-          "catgrasp_tpu_torch.pipelines.make_canonical")
+          "catgrasp_tpu_torch.pipelines.make_canonical", "catgrasp_tpu_torch.core.camera",
+          "catgrasp_tpu_torch.sim.snapshot", "catgrasp_tpu_torch.pipelines.calibrate_bandwidth",
+          "catgrasp_tpu_torch.utils.outputs")
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
@@ -78,9 +81,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 def test_the_ports_outputs_default_to_untracked_directories():
     """``generate_grasp``, ``make_sdf``, the training data, the trainers,
-    the affordance labels and the canonical write where git tracks nothing
-    by default (directories ``.gitignore`` lists), never over the JAX
-    package's DBs, grids, scenes, checkpoints, labels or canonicals."""
+    the affordance labels, the canonical, the re-scored DBs and the
+    bandwidth calibration write where git tracks nothing by default
+    (directories ``.gitignore`` lists), never over the JAX package's DBs,
+    grids, scenes, checkpoints, labels or canonicals."""
     from catgrasp_tpu_torch.pipelines import (generate_grasp, generate_pile_data, make_sdf,
                                               pack_training_data, train_grasp, train_nunocs,
                                               train_seg)
@@ -99,12 +103,49 @@ def test_the_ports_outputs_default_to_untracked_directories():
         assert any(path.startswith(d + "/") for d in ignored), path
     for out in (generate_grasp.DEFAULT_OUT_DIR, make_sdf.DEFAULT_OUT_DIR,
                 generate_pile_data.DEFAULT_OUT_DIR, trainer.DEFAULT_CKPT_ROOT,
-                generate_affordance.DEFAULT_OUT_DIR, make_canonical.DEFAULT_OUT_DIR):
+                generate_affordance.DEFAULT_OUT_DIR, make_canonical.DEFAULT_OUT_DIR,
+                rescore_grasp_db.DEFAULT_OUT_DIR):
         assert out in ignored, out
         if os.path.isdir(os.path.join(REPO, ".git")):
             r = subprocess.run(["git", "ls-files", "--", out], cwd=REPO, capture_output=True,
                                text=True, timeout=60)
             assert r.returncode == 0 and r.stdout == "", r.stdout
+
+
+def test_no_cli_writes_into_tracked_data(tmp_path):
+    """Every command-line tool of the port refuses an output in the tracked
+    DBs, labels, canonicals, checkpoints or logs before it does any work,
+    and the tracked files stay as they were."""
+    from catgrasp_tpu_torch.pipelines import pack_training_data
+    from catgrasp_tpu_torch.train import trainer
+    db = os.path.join(REPO, "dataset", "grasps", "nut_train_0_complete_grasp.npz")
+    grasps, tracked = os.path.join(REPO, "dataset", "grasps"), os.path.join(REPO, "artifacts_tracked")
+    before = {p: os.path.getmtime(os.path.join(grasps, p)) for p in os.listdir(grasps)}
+    calls = [
+        lambda: generate_grasp.main(["--index", "0", "--out_dir", grasps, "--device", "cpu"]),
+        lambda: make_sdf.main(["--out_dir", os.path.join(REPO, "dataset", "grasps", "sdf"),
+                               "--device", "cpu"]),
+        lambda: generate_affordance.main(["--grasp_db", db, "--device", "cpu", "--out_dir",
+                                          os.path.join(REPO, "dataset", "affordance")]),
+        lambda: make_canonical.main(["--out", os.path.join(REPO, "dataset", "nut_canonical.npz"),
+                                     "--device", "cpu"]),
+        lambda: generate_pile_data.main(["--out_dir", os.path.join(tracked, "nut")],
+                                        device="cpu"),
+        lambda: pack_training_data.main(["--root", str(tmp_path), "--out_dir",
+                                         os.path.join(tracked, "packed")]),
+        lambda: rescore_grasp_db.main(["--db", db, "--write", "--out_dir", grasps,
+                                       "--device", "cpu"]),
+        lambda: rescore_grasp_db.main(["--db", db, "--out",
+                                       os.path.join(REPO, "logs", "db_drift.jsonl"),
+                                       "--device", "cpu"]),
+        lambda: calibrate_bandwidth.main(["--artifacts", os.path.join(tracked, "nut"),
+                                          "--val_dir", str(tmp_path), "--device", "cpu"]),
+        lambda: trainer.Trainer(None, {}, None, None, ckpt_dir=os.path.join(tracked, "nut", "seg")),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="tracked"):
+            call()
+    assert {p: os.path.getmtime(os.path.join(grasps, p)) for p in os.listdir(grasps)} == before
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
@@ -156,6 +197,12 @@ def test_entry_points_raise_without_a_gpu(monkeypatch, tmp_path):
             "--out_dir", str(tmp_path)]),
         lambda: make_canonical.compute_canonical("nut", []),
         lambda: make_canonical.main(["--out", str(tmp_path / "c.npz")]),
+        lambda: rescore_grasp_db.main([
+            "--db", os.path.join(REPO, "dataset", "grasps", "nut_train_0_complete_grasp.npz"),
+            "--write", "--out_dir", str(tmp_path)]),
+        lambda: calibrate_bandwidth.main(["--artifacts", str(tmp_path),
+                                          "--val_dir", str(tmp_path)]),
+        lambda: snapshot.restore_state(SceneState.create(3, device="cpu")),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="device='cpu'"):

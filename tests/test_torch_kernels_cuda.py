@@ -235,6 +235,31 @@ def test_march_kernel_matches_plain(dev):
     assert not (seg == 1).any()
 
 
+def test_render_chunked_launches_a_strip_and_matches_the_plain_version(dev):
+    """``render_chunked`` on the GPU: one K2 launch a row strip (150 rows in
+    strips of 64, the last padded and cropped), and the frame held within
+    K2's limits against the same strips marched by the plain version on
+    the CPU."""
+    H, W, rows = 150, 200, 64
+    frames = []
+    for d in (dev, torch.device("cpu")):
+        lib, state, params, env = _march_scene(d)
+        K, cam = _top_camera(d, H, W, 250.0)
+        n0 = render_march.march_csg.launches
+        frames.append(raymarch.render_chunked(lib, state, params, K, cam, H, W, env=env,
+                                              rows_per_chunk=rows))
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            assert render_march.march_csg.launches == n0 + 3
+    (k, p) = ({key: v.cpu() for key, v in f.items()} for f in frames)
+    assert k["seg"].shape == (H, W) and k["xyz"].shape == (H, W, 3)
+    assert (k["seg"] == p["seg"]).float().mean().item() > 0.995
+    both = (k["seg"] == p["seg"]) & (p["seg"] != -1)
+    assert (k["depth"] - p["depth"])[both].abs().max().item() < 2e-3
+    assert set(k["seg"].unique().tolist()) == set(p["seg"].unique().tolist())
+    assert {0, 1, 2} <= set(k["seg"].unique().tolist())
+
+
 def _render_batch_inputs(dev, batch=4):
     specs = (("nut", 0), ("screw", 0), ("hnm", 0), ("nut", 3))
     cfg, lib, env, states, params = _pile_batch(dev, specs, 32, 10, batch, 60)
