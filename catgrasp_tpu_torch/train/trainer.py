@@ -1,4 +1,5 @@
-"""Single-GPU trainer (``catgrasp_tpu/train/trainer.py`` in PyTorch).
+"""The trainer (``catgrasp_tpu/train/trainer.py`` in PyTorch): one GPU, or
+data-parallel over a mesh's batch shards (``Trainer.mesh``).
 
 The three nets share one epoch loop: Adam (or SGD), lr = start_lr / 64 x
 batch size, x0.1 at each milestone epoch after an optional linear warmup,
@@ -37,6 +38,7 @@ from torch import nn
 
 from .. import convert
 from ..nn.init import init_like_flax
+from ..parallel.mesh import dp_sharding, split, to_device, tree_map
 from ..predict import ckpt
 from ..utils import profiling
 from ..utils.metrics import MetricsLogger
@@ -177,24 +179,47 @@ def create_state(model: nn.Module, cfg: dict, steps_per_epoch: int = 100,
     return TrainState(model=model, tx=make_optimizer(model, cfg, steps_per_epoch))
 
 
-def to_device(batch: dict, device) -> dict:
-    """A host batch (numpy arrays) on the device; from pinned memory on a
-    GPU, so the copy does not make the host wait."""
-    dev = torch.device(device)
-    out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        out[k] = t.pin_memory().to(dev, non_blocking=True) if dev.type == "cuda" else t
-    return out
+class ShardedModule(nn.Module):
+    """``model`` data-parallel over a mesh's batch shards: each call splits
+    every tensor argument on dim 0 over ``dp_sharding(mesh)``, runs the
+    model on each shard's device with its parameters copied there
+    (``torch.func.functional_call``), and returns the outputs (a tensor or
+    a tuple of them) concatenated in order on the model's device.
+    The copies are differentiable, so one ``backward()`` of a loss on the
+    gathered outputs sums every shard's gradient into the model's own
+    parameters: the all-reduce that XLA inserts for JAX's sharded step."""
+
+    def __init__(self, model: nn.Module, mesh):
+        super().__init__()
+        self.model = model
+        self.mesh = mesh
+
+    def forward(self, *args, **kwargs):
+        home = model_device(self.model)
+        devs = dp_sharding(self.mesh)
+        named = list(self.model.named_parameters())
+        on = {d: {k: p.to(d) for k, p in named} for d in dict.fromkeys(devs)}
+        outs = [tree_map(lambda t: t.to(home),
+                         torch.func.functional_call(self.model, on[d], *to_device(shard, d)))
+                for d, shard in zip(devs, split((args, kwargs), len(devs)))]
+        return tree_map(lambda *xs: torch.cat(xs), *outs)
 
 
-def make_train_step(loss_fn: Callable):
+def make_train_step(loss_fn: Callable, mesh=None):
     """``step(state, batch) -> (state, loss, aux)``: the loss and its
     gradients at the current parameters, then one optimizer step.
-    ``loss_fn(model, batch, train) -> (loss, aux)``."""
+    ``loss_fn(model, batch, train) -> (loss, aux)``.  With a mesh, the loss
+    sees the model as a ``ShardedModule``: the forward runs data-parallel
+    over the mesh's batch shards and the loss is taken on the gathered
+    outputs, so the step equals the one-device step on the whole batch for
+    any normalisation of the loss.  The parameters, the optimizer and its
+    state stay on the model's device, and checkpoints keep their format.
+    A net that draws dropout masks draws one per shard (on the one device,
+    one for the batch): the two steps then agree in distribution only."""
 
     def step(state: TrainState, batch: dict):
-        loss, aux = loss_fn(state.model, batch, True)
+        model = state.model if mesh is None else ShardedModule(state.model, mesh)
+        loss, aux = loss_fn(model, batch, True)
         state.tx.zero_grad()
         loss.backward()
         state.tx.step()
@@ -218,6 +243,7 @@ class Trainer:
     loss_fn: Callable
     train_data: Callable  # () -> iterator of batches (host numpy dicts)
     val_data: Callable | None = None
+    mesh: Any = None  # parallel.mesh.Mesh: the train step data-parallel over its batch shards
     ckpt_dir: str = "artifacts_torch"
     best_train: float = field(default=float("inf"))
     best_val: float = field(default=float("inf"))
@@ -247,7 +273,7 @@ class Trainer:
         lr_scale, since_best = 1.0, 0
         steps_per_epoch = max(int(self.cfg.get("steps_per_epoch", 100)), 1)
         t_start = time.monotonic()
-        step_fn = make_train_step(self.loss_fn)
+        step_fn = make_train_step(self.loss_fn, self.mesh)
         dev = model_device(state.model)
         os.makedirs(self.ckpt_dir, exist_ok=True)
         mlog = MetricsLogger(f"{self.ckpt_dir}/metrics.jsonl", run=type(self.model).__name__)

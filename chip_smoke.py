@@ -142,9 +142,21 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    --write --rebalance`` on the drift probe's 256 poses; ``calibrate_bandwidth``
    with the tracked seg net on the training-data scenes; the cluster
    reducers on the card against the CPU;
-18. a ``grasp_db``, a ``training``, an ``affordance``, an ``arm_dynamics``, a
-   ``remaining_modules`` and a ``kernels`` JSON line, the card line, then
-   ``{"ok": true, ...}``.
+18. ``parallel/``, with every launch count set to 0 just before and read
+   just after (no kernel on this path): ``make_mesh()`` over the real
+   devices; ``sharded_rollout`` of 64 nut piles of the front half's pile
+   config on a virtual mesh of 4 x the card and on the real mesh, against
+   one ``rollout_batch`` (within 1e-5 m after 10 steps; after 50 the
+   largest difference and the share of active bodies within 1e-4 m), with
+   the wall times; ``sharded_map`` of a per-scene function; one mesh train
+   step of each net at its config's width and batch on a virtual mesh of 2 x
+   the card against the one-device step from the same parameters
+   (parameters within 1e-4 of a leaf's norm for the PointNet nets, the
+   grasp net's dropout off; the seg net's gradients at cosine >= 0.999),
+   with ms a step of both;
+19. a ``grasp_db``, a ``training``, an ``affordance``, an ``arm_dynamics``, a
+   ``remaining_modules``, a ``parallel`` and a ``kernels`` JSON line, the
+   card line, then ``{"ok": true, ...}``.
 
 It imports nothing of the JAX package.  Without a GPU it exits non-zero
 before printing any result.
@@ -2616,6 +2628,153 @@ def remaining_modules_phase(dev, scene, state, params, work: str, scenes_dir: st
     return out
 
 
+# --------------------------------------------------------------------------
+# parallel/: the device mesh, the sharded rollout and map, the mesh train step
+# --------------------------------------------------------------------------
+
+PARALLEL_SCENES, PARALLEL_SHARDS, PARALLEL_NET_SHARDS = 64, 4, 2
+
+
+def parallel_phase(dev, scene, packed_dir: str) -> dict:
+    """``parallel/`` on the card, with every launch count set to 0 just
+    before and read just after (no kernel on this path): ``make_mesh()`` over
+    the real devices; ``sharded_rollout`` of 64 nut piles of the front
+    half's pile config on the real mesh and on a virtual mesh of 4 x the
+    card, against one ``rollout_batch`` (within 1e-5 m after 10 steps; after
+    50, the largest difference and the share of active bodies within 1e-4
+    m); ``sharded_map`` of a per-scene function; one mesh train step of each
+    net at its config's width and batch on a virtual mesh of 2 x the card
+    against the one-device step from the same parameters (the PointNet nets'
+    parameters within 1e-4 of each leaf's norm with TF32 off, the grasp net
+    with dropout off; the seg net's gradients at cosine >= 0.999 a leaf),
+    with ms a step of both."""
+    import copy
+
+    from catgrasp_tpu_torch.config.loader import load_config
+    from catgrasp_tpu_torch.data import packed
+    from catgrasp_tpu_torch.parallel import mesh as pmesh
+    from catgrasp_tpu_torch.parallel import rollout as prollout
+    from catgrasp_tpu_torch.pipelines import train_grasp, train_nunocs, train_seg
+    from catgrasp_tpu_torch.sim import engine, env_pile
+    from catgrasp_tpu_torch.sim.types import SceneParams
+    from catgrasp_tpu_torch.train import trainer as T
+
+    t_phase = time.perf_counter()
+    launch_counts(zero=True)
+    real = pmesh.make_mesh()
+    virtual = pmesh.make_mesh(devices=[dev] * PARALLEL_SHARDS)
+    print(f"parallel: make_mesh() over the real devices: {real.shape} "
+          f"{[str(d) for d in pmesh.dp_sharding(real)]}; virtual mesh {virtual.shape}",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    states, params = env_pile.reset_batch(gen, scene.lib, scene.pile_cfg, PARALLEL_SCENES,
+                                          n_objects=scene.pile_cfg.max_bodies)
+    params = SceneParams.create(scene.lib, params.shape_id % scene.n_inst, params.scale)
+    lib, env = scene.lib, scene.env_bin
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    rec = {"scenes": PARALLEL_SCENES, "bodies": scene.pile_cfg.max_bodies,
+           "mesh_real": real.shape, "mesh_virtual": virtual.shape}
+    for n in (10, 50):
+        whole, whole_s = wall(lambda: engine.rollout_batch(states, params, lib, env, n))
+        chunked, chunked_s = wall(
+            lambda: prollout.sharded_rollout(virtual, states, params, lib, env, n))
+        on_real = prollout.sharded_rollout(real, states, params, lib, env, n)
+        d = (chunked.pos - whole.pos).norm(dim=-1)
+        err = float(d.max())
+        within = float((d[whole.active] <= 1e-4).float().mean())
+        bit_equal = all(torch.equal(getattr(chunked, k), getattr(whole, k))
+                        for k in ("pos", "quat", "linvel", "angvel", "active"))
+        real_err = float((on_real.pos - whole.pos).abs().max())
+        rec[f"steps_{n}"] = {"max_abs_err_m": err, "active_within_1e-4": within,
+                             "bit_equal": bit_equal, "real_mesh_max_abs_err_m": real_err,
+                             "whole_s": whole_s, "chunked_s": chunked_s}
+        print(f"parallel: {PARALLEL_SCENES} piles x {n} steps, {PARALLEL_SHARDS} shards against "
+              f"one rollout_batch: max |diff| {err:.3e} m, active bodies within 1e-4 m "
+              f"{100 * within:.2f}%, bit-equal {bit_equal}; the real mesh max |diff| "
+              f"{real_err:.3e} m; wall {chunked_s:.3f} s chunked, {whole_s:.3f} s whole", flush=True)
+        if n == 10 and err > 1e-5:
+            fail(f"parallel: the sharded rollout is {err:.3e} m off the whole batch after 10 steps")
+        if real_err > 1e-5 and n == 10:
+            fail("parallel: the sharded rollout on the real mesh differs from the whole batch")
+
+    def motion(a, b, active):  # one scene: its largest body displacement
+        return torch.amax(torch.where(active, (b - a).norm(dim=-1), 0.0))
+
+    whole = engine.rollout_batch(states, params, lib, env, 10)
+    mapped = prollout.sharded_map(virtual, motion, states.pos, whole.pos, whole.active)
+    direct = engine.max_body_motion(states, whole)
+    map_err = float((mapped - direct).abs().max())
+    rec["sharded_map_max_abs_err"] = map_err
+    print(f"parallel: sharded_map of a scene's largest displacement ({tuple(mapped.shape)}) "
+          f"against engine.max_body_motion: max |diff| {map_err:.3e}", flush=True)
+    if map_err > 1e-6:
+        fail("parallel: sharded_map differs from the batched function")
+
+    net_mesh = pmesh.make_mesh(devices=[dev] * PARALLEL_NET_SHARDS)
+    nets = {
+        "nunocs": (load_config("config_nunocs.yml"), lambda c: train_nunocs.build(c, "nut"),
+                   packed.PackedNunocs),
+        "grasp": (load_config("config_grasp.yml"), train_grasp.build, packed.PackedGrasp),
+        "seg": (load_config("config_seg.yml"), train_seg.build, packed.PackedSeg)}
+    nets["seg"][0]["batch_size"] = 4  # train_seg's command-line default
+    rec["nets"] = {}
+    for net, (cfg, build, data) in nets.items():
+        torch.cuda.empty_cache()
+        bs = cfg["batch_size"]
+        ds = data(packed_dir, cfg)
+        batch = T.to_device(next(iter(ds.batches(bs))), dev)
+        model, loss_fn = build(cfg)
+        if net == "grasp":
+            model.dropout = 0.0
+        one = T.create_state(model, cfg, 100, device=dev)
+        sharded = T.TrainState(model=copy.deepcopy(model), tx=None)
+        sharded.tx = T.make_optimizer(sharded.model, cfg, 100)
+        step_one, step_mesh = T.make_train_step(loss_fn), T.make_train_step(loss_fn, net_mesh)
+        _, l_one, _ = step_one(one, batch)
+        _, l_mesh, _ = step_mesh(sharded, batch)
+        named = dict(sharded.model.named_parameters())
+        grad_rel, param_rel, cos_min = 0.0, 0.0, 1.0
+        for k, p in one.model.named_parameters():
+            q = named[k]
+            scale = max(float(p.grad.norm()), 1e-12)
+            grad_rel = max(grad_rel, float((q.grad - p.grad).abs().max()) / scale)
+            cos = float(torch.nn.functional.cosine_similarity(
+                q.grad.flatten(), p.grad.flatten(), dim=0)) if float(p.grad.norm()) > 0 else 1.0
+            cos_min = min(cos_min, cos)
+            param_rel = max(param_rel, float((q - p).detach().abs().max())
+                            / max(float(p.detach().norm()), 1e-12))
+        ms_one = cuda_ms(lambda: step_one(one, batch), 5)
+        ms_mesh = cuda_ms(lambda: step_mesh(sharded, batch), 5)
+        r = {"batch": bs, "shards": PARALLEL_NET_SHARDS, "loss": float(l_one),
+             "loss_rel_diff": abs(float(l_mesh) - float(l_one)) / abs(float(l_one)),
+             "grad_max_rel_err": grad_rel, "grad_min_cosine": cos_min,
+             "param_max_rel_err": param_rel, "ms_one_device": ms_one, "ms_mesh": ms_mesh}
+        rec["nets"][net] = r
+        print(f"parallel [{net}] batch {bs} on {PARALLEL_NET_SHARDS} shards: loss "
+              f"{float(l_mesh):.6f} vs {float(l_one):.6f}; gradients max |diff| "
+              f"{grad_rel:.3e} of a leaf's norm, least cosine {cos_min:.6f}; parameters after "
+              f"the step {param_rel:.3e} of a leaf's norm; a step {ms_mesh:.3f} ms on the mesh, "
+              f"{ms_one:.3f} ms on one device (CUDA events)", flush=True)
+        if net == "seg" and cos_min < 0.999:
+            fail(f"parallel [seg]: a gradient leaf at cosine {cos_min:.6f} < 0.999")
+        if net != "seg" and param_rel > 1e-4:
+            fail(f"parallel [{net}]: the mesh step's parameters are {param_rel:.3e} of a leaf's "
+                 f"norm off the one-device step's")
+        del one, sharded, model, batch
+    rec["launches"] = launch_counts()
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"parallel: launches {json.dumps(rec['launches'])} (no kernel on this path); "
+          f"{rec['wall_s']:.1f} s", flush=True)
+    return rec
+
+
 def no_host_waits(label: str, fn) -> None:
     """Call ``fn`` once to warm it up, then again under
     ``torch.cuda.set_sync_debug_mode("warn")``: fail if any operation in it
@@ -2721,7 +2880,8 @@ def main() -> None:
 
 def run_all(dev, logs, card, work) -> None:
     """Every phase, then the ``nets``, ``grasp_db``, ``training``,
-    ``affordance``, ``arm_dynamics`` and ``kernels`` lines."""
+    ``affordance``, ``arm_dynamics``, ``remaining_modules``, ``parallel`` and
+    ``kernels`` lines."""
     check_box_hits_variants(dev)
     k1_random = check_box_hits(dev)
     scene, state, params, launches, times = main_path(dev)
@@ -2790,6 +2950,7 @@ def run_all(dev, logs, card, work) -> None:
     dyn_launches, dyn = dynamics_round(dev, card)
     remaining = remaining_modules_phase(dev, scene, state, params, work,
                                         os.path.join(work, "train"))
+    par = parallel_phase(dev, scene, packed_dir)
 
     from catgrasp_tpu_torch.ops import render_march
     k1_bound, k1_by = bound_of(k1["ops"], k1["bytes"])
@@ -2838,6 +2999,7 @@ def run_all(dev, logs, card, work) -> None:
          "launches_training_data": td_launches["box_hits"],
          "launches_affordance": aff_launches["box_hits"],
          "launches_dynamics_round": dyn_launches["box_hits"],
+         "launches_parallel": par["launches"]["box_hits"],
          "at_nocs_gate_dynamics": nocs_gate_row("arm-dynamics round", "nut", dyn["k1"]),
          "launches_combined_sampler": remaining["samplers"]["launches"]["box_hits"],
          "at_combined_sampler": remaining["samplers"]["k1"],
@@ -2880,6 +3042,7 @@ def run_all(dev, logs, card, work) -> None:
          "launches_training_data": td_launches["march_csg"],
          "launches_affordance": aff_launches["march_csg"],
          "launches_dynamics_round": dyn_launches["march_csg"],
+         "launches_parallel": par["launches"]["march_csg"],
          "at_dynamics_round": {k: dyn["k2"][k] for k in (
              "shapes", "seg_agree", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
          "launches_fullres_frame": remaining["fullres"]["launches"],
@@ -2909,6 +3072,7 @@ def run_all(dev, logs, card, work) -> None:
          "launches_training_data": td_launches["rollout_fused"],
          "launches_affordance": aff_launches["rollout_fused"],
          "launches_dynamics_round": dyn_launches["rollout_fused"],
+         "launches_parallel": par["launches"]["rollout_fused"],
          "launches_combined_sampler": remaining["samplers"]["launches"]["rollout_fused"],
          "launches_rescore": remaining["rescore"]["launches"]["rollout_fused"],
          "max_abs_err": k3["max_abs_err"], "within_tol_frac": k3["within_tol_frac"],
@@ -2931,6 +3095,7 @@ def run_all(dev, logs, card, work) -> None:
         "samplers": {k: v for k, v in remaining["samplers"].items() if k != "k1"},
         **{k: remaining[k] for k in ("scene_tools", "rescore", "calibration", "reducers",
                                      "wall_s")}}}), flush=True)
+    print(json.dumps({"parallel": par}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
 
 
