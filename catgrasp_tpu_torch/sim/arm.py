@@ -175,7 +175,7 @@ def execute_pick_arm(lib: ShapeLib, state: SceneState, params: SceneParams,
                      env_bin: engine.StaticEnv, target: int, qs: torch.Tensor,
                      base_in_world: torch.Tensor, ee_in_grasp: torch.Tensor,
                      spec: GripperSpec = GripperSpec(), n_app: int = 160, n_close: int = 50,
-                     n_hold: int = 80, narrowphase: str = "csg"):
+                     n_hold: int = 80, narrowphase: str = "csg", trace: list | None = None):
     """Arm-executed pick: approach along ``qs[:n_app]`` (RRT + descent,
     resampled), close, gravity-hold gate, then lift along the rest with the
     object attached while it stays a collider for the rest of the pile.
@@ -185,7 +185,8 @@ def execute_pick_arm(lib: ShapeLib, state: SceneState, params: SceneParams,
     ob_in_grasp, width, center, disturbance) as tensors: ``center`` is the
     finger-midline y offset the per-finger close settled at, and
     ``disturbance`` the largest displacement of a non-target body during
-    the approach."""
+    the approach.  A ``trace`` list gets the target's position after every
+    step (a (3,) tensor a step)."""
     dt = engine.DT
     dev = qs.device
     T = qs.shape[0]
@@ -226,6 +227,8 @@ def execute_pick_arm(lib: ShapeLib, state: SceneState, params: SceneParams,
             moved = tf.norm(st.pos - pos0)
             disturb = torch.maximum(disturb, torch.amax(
                 torch.where(not_target & st.active, moved, 0.0)))
+        if trace is not None:
+            trace.append(st.pos[target])
 
     # hold gate at the END OF HOLD (pre-lift), the floating gripper's verify
     # semantics

@@ -128,7 +128,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    through the same counted run as phase 7 (K1 and K2 held on its gate and
    frame), each ``dynamicize_schedule`` call timed with its largest
    |achieved - scheduled| joint error, and no host wait in one;
-17. the remaining modules: the reference camera (``Camera.from_config``,
+17. paired picks: two committed records of ``scripts/paired_pick_jax.py``
+   (a nut pile, a grid pile of a demo mesh) replayed through
+   ``execute_pick_arm`` on JAX's dynamicized schedule, with every launch
+   count set to 0 just before and read just after (no kernel on this path):
+   the target's trajectory within 1e-4 m of JAX's up to the step at which
+   JAX parts from its own run from positions nudged 1e-6 m, and where JAX
+   agrees with that run, the pick and the width (0.2 mm) too;
+18. the remaining modules: the reference camera (``Camera.from_config``,
    1544 x 2064) over the main path's settled pile through
    ``render_chunked`` (7 K2 launches, one a strip of 256 rows), each strip
    held against the plain march, the kernel, plain and label-pass times and
@@ -142,7 +149,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    --write --rebalance`` on the drift probe's 256 poses; ``calibrate_bandwidth``
    with the tracked seg net on the training-data scenes; the cluster
    reducers on the card against the CPU;
-18. ``parallel/``, with every launch count set to 0 just before and read
+19. ``parallel/``, with every launch count set to 0 just before and read
    just after (no kernel on this path): ``make_mesh()`` over the real
    devices; ``sharded_rollout`` of 64 nut piles of the front half's pile
    config on a virtual mesh of 4 x the card and on the real mesh, against
@@ -154,8 +161,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (parameters within 1e-4 of a leaf's norm for the PointNet nets, the
    grasp net's dropout off; the seg net's gradients at cosine >= 0.999),
    with ms a step of both;
-19. a ``grasp_db``, a ``training``, an ``affordance``, an ``arm_dynamics``, a
-   ``remaining_modules``, a ``parallel`` and a ``kernels`` JSON line, the
+20. a ``grasp_db``, a ``training``, an ``affordance``, an ``arm_dynamics``, a
+   ``paired_pick``, a ``remaining_modules``, a ``parallel`` and a ``kernels``
+   JSON line, the
    card line, then ``{"ok": true, ...}``.
 
 It imports nothing of the JAX package.  Without a GPU it exits non-zero
@@ -2206,6 +2214,42 @@ def dynamics_round(dev, card: str):
     return launches, out
 
 
+# two paired-pick records (scripts/paired_pick_jax.py) replayed by the smoke:
+# one nut pile of the eval matrix, one grid pile of a demo mesh
+PAIRED_RECORDS = ("logs/paired_pick/nut_seed00_seg0.npz",
+                  "logs/paired_pick/demo_nut_seed00_seg1.npz")
+
+
+def paired_pick_phase(dev, card: str) -> dict:
+    """Two committed paired-pick records replayed on the card through
+    ``execute_pick_arm`` on JAX's dynamicized 320-waypoint schedule
+    (``scripts/paired_pick_protocol.py``), with every launch count set to 0
+    just before and read just after (no kernel on this path): the target's
+    trajectory within 1e-4 m of JAX's recorded one up to the record's floor
+    horizon (where JAX parts from its own run from positions nudged 1e-6
+    m); where JAX agrees with its nudged self, ``picked`` equal and the width
+    within 0.2 mm."""
+    from scripts import paired_pick_protocol as ppp
+
+    t0 = time.perf_counter()
+    launch_counts(zero=True)
+    rows = [ppp.replay(os.path.join(REPO, p), dev, runs=("dyn",)) for p in PAIRED_RECORDS]
+    launches = launch_counts()
+    wall = time.perf_counter() - t0
+    for row in rows:
+        r = row["dyn"]
+        print(f"paired pick {row['record']} on {card}: picked {r['picked']} (JAX "
+              f"{r['jax_picked']}), width {r['w_f'] * 1e3:.3f} mm (JAX {r['jax_w_f'] * 1e3:.3f}), "
+              f"parts from JAX at step {r['part']} of 320 (floor {row['floor_part']}), largest "
+              f"deviation {r['max_dev_m']:.2e} m, {r['s']:.2f} s", flush=True)
+        breaches = ppp.horizon_breaches(row)
+        if breaches:
+            fail(f"paired pick {row['record']}: {'; '.join(breaches)}")
+    print(f"paired pick: {len(rows)} records in {wall:.2f} s on {card}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    return {"rows": rows, "wall_s": wall, "launches": launches}
+
+
 # --------------------------------------------------------------------------
 # the remaining modules: the reference camera, the samplers' centering and
 # CombinedGraspSampler, the scene tools, the rescore, the calibration and
@@ -2880,8 +2924,8 @@ def main() -> None:
 
 def run_all(dev, logs, card, work) -> None:
     """Every phase, then the ``nets``, ``grasp_db``, ``training``,
-    ``affordance``, ``arm_dynamics``, ``remaining_modules``, ``parallel`` and
-    ``kernels`` lines."""
+    ``affordance``, ``arm_dynamics``, ``paired_pick``, ``remaining_modules``,
+    ``parallel`` and ``kernels`` lines."""
     check_box_hits_variants(dev)
     k1_random = check_box_hits(dev)
     scene, state, params, launches, times = main_path(dev)
@@ -2948,6 +2992,7 @@ def run_all(dev, logs, card, work) -> None:
     training = training_phase(dev, packed_dir, work)
     aff_launches, affordance = affordance_phase(dev, card)
     dyn_launches, dyn = dynamics_round(dev, card)
+    paired = paired_pick_phase(dev, card)
     remaining = remaining_modules_phase(dev, scene, state, params, work,
                                         os.path.join(work, "train"))
     par = parallel_phase(dev, scene, packed_dir)
@@ -3090,6 +3135,7 @@ def run_all(dev, logs, card, work) -> None:
     print(json.dumps({"affordance": affordance}), flush=True)
     print(json.dumps({"arm_dynamics": {k: dyn[k] for k in (
         "tally", "attempts", "stage_s", "wall_s", "launches", "dynamicize")}}), flush=True)
+    print(json.dumps({"paired_pick": paired}), flush=True)
     print(json.dumps({"remaining_modules": {
         "fullres": remaining["fullres"],
         "samplers": {k: v for k, v in remaining["samplers"].items() if k != "k1"},

@@ -34,6 +34,7 @@ for m in pkgutil.walk_packages(catgrasp_tpu_torch.__path__, "catgrasp_tpu_torch.
     importlib.import_module(m.name)
 import chip_smoke
 from scripts import affordance_protocol  # the smoke's affordance comparisons
+from scripts import paired_pick_protocol  # the smoke's paired picks
 names = {"jax", "flax", "msgpack", "catgrasp_tpu"}
 bad = sorted(n for n in sys.modules
              if n in names or any(n.startswith(p + ".") for p in names))
