@@ -351,13 +351,18 @@ class Trainer:
         return state
 
     def evaluate(self, state: TrainState) -> float:
-        """The mean loss over the val batches, without gradients and with
-        dropout off."""
+        """The mean training loss over the val batches, without gradients,
+        as JAX's ``evaluate`` takes it: the loss in training mode, so the
+        grasp net's dropout is on, with every batch's draws made from seed
+        0 (JAX's ``PRNGKey(0)``: the same mask for every batch of a shape,
+        and the training stream left where it was)."""
         dev = model_device(state.model)
         losses = []
         with torch.no_grad():
             for batch in self.val_data():
-                losses.append(self.loss_fn(state.model, to_device(batch, dev), False)[0])
+                with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
+                    torch.manual_seed(0)
+                    losses.append(self.loss_fn(state.model, to_device(batch, dev), True)[0])
         return float(torch.stack(losses).mean()) if losses else float("inf")
 
 

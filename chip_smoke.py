@@ -113,7 +113,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    against the trained module, ms a step (CUDA events), samples/s, peak
    memory, launches and busy share over 10 profiled steps, no host wait in
    a step, a ``last.ckpt`` resumed in a fresh state giving the same next
-   loss, and the loss falling over 20 steps on one repeated batch;
+   loss, and the loss falling over 20 steps on one repeated batch; then the
+   paired training protocol on the card against the host CPU
+   (``scripts/train_parity_protocol.py``): each net from the tracked nut
+   export, 2 epochs of 1 step with val and ``best_val`` on the packed rows
+   (seg 1, NUNOCS 1, grasp 4 clouds a batch at full width), on the card,
+   on the card from parameters nudged 1e-6 relative (the floor) and on the
+   host, with every launch count set to 0 just before and read just after
+   (no kernel): the host's val losses within max(2 x the floor's
+   difference, 1e-3) relative of the card's, the same ``best_val`` epoch,
+   its first loss within 2^-8 (seg, bf16 convs) or 1e-3 of the card's;
 15. affordance labels and the canonical: nut/train/0's 4,096 tracked DB
    grasps x 1,024 affordance points through ``generate_affordance`` in one
    dispatch, with every launch count set to 0 just before and read just
@@ -124,7 +133,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    no host wait in ``try_grasp``; ``compute_canonical`` for nut on the card
    with this instance's labels, its medoid and codebook equal to the CPU
    run's, its affordance against the tracked canonical;
-16. ``--arm_dynamics 1``: a nut round of 8 objects, at most 2 attempts,
+16. ``--arm_dynamics 1``: a nut round of 8 objects, at most 1 attempt,
    through the same counted run as phase 7 (K1 and K2 held on its gate and
    frame), each ``dynamicize_schedule`` call timed with its largest
    |achieved - scheduled| joint error, and no host wait in one;
@@ -161,10 +170,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (parameters within 1e-4 of a leaf's norm for the PointNet nets, the
    grasp net's dropout off; the seg net's gradients at cosine >= 0.999),
    with ms a step of both;
-20. a ``grasp_db``, a ``training``, an ``affordance``, an ``arm_dynamics``, a
-   ``paired_pick``, a ``remaining_modules``, a ``parallel`` and a ``kernels``
-   JSON line, the
-   card line, then ``{"ok": true, ...}``.
+20. a ``grasp_db``, a ``training``, a ``train_parity``, an ``affordance``, an
+   ``arm_dynamics``, a ``paired_pick``, a ``remaining_modules``, a
+   ``parallel`` and a ``kernels`` JSON line, the card line, then
+   ``{"ok": true, ...}``.
 
 It imports nothing of the JAX package.  Without a GPU it exits non-zero
 before printing any result.
@@ -2030,6 +2039,77 @@ def training_phase(dev, packed_dir: str, work: str) -> dict:
     return record
 
 
+# the paired-training phase: each net's batch (cut from the trainers' so
+# that the host CPU's run fits the phase), 2 epochs of 1 step and 1 val
+# batch (the training data's rows), and the first step's loss on the host
+# within this of the card's (one batch, the same parameters): one bf16
+# step, 2^-8, for the seg net, whose convs run in bf16 (found 1.0e-4 and
+# 5.4e-4 apart in two runs), 1e-3 for the f32 nets (found < 2e-7)
+TRAIN_PARITY_BATCH = {"seg": 1, "nunocs": 1, "grasp": 4}
+TRAIN_PARITY_STEPS, TRAIN_PARITY_EPOCHS = 1, 2
+TRAIN_PARITY_FIRST_REL = {"seg": 2.0 ** -8, "nunocs": 1e-3, "grasp": 1e-3}
+
+
+def train_parity_phase(dev, card: str, packed_dir: str, work: str) -> dict:
+    """The paired training protocol (``scripts/train_parity_protocol.py``)
+    on the card against the host CPU: each net from the tracked nut export
+    through ``Trainer.fit`` on the training data's packed rows (train and
+    val), at full width and points a cloud, 2 epochs of 1 step with a val
+    pass and ``best_val`` at each epoch end (the grasp net's dropout masks
+    carried in), three runs: on the card, on the card from the parameters
+    nudged by 1e-6 relative (the floor) and on the host.  With every launch
+    count set to 0 just before and read just after (no kernel on this path).
+    Fails unless the host's run holds to the card's as the protocol holds
+    two runs (``compare``: the same ``best_val`` epoch, each val loss within
+    max(2 x the floor's difference, 1e-3) relative) and its first loss is
+    within ``TRAIN_PARITY_FIRST_REL`` of the card's."""
+    from scripts import train_parity_protocol as tpp
+
+    t0 = time.perf_counter()
+    launch_counts(zero=True)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(os.cpu_count() or 1)
+    rows = {}
+    try:
+        for net, batch in TRAIN_PARITY_BATCH.items():
+            runs = {}
+            for run, device, nudged in (("card", dev, False), ("card_nudged", dev, True),
+                                        ("host", torch.device("cpu"), False)):
+                runs[run] = tpp.run_port(net, (packed_dir, packed_dir), device, run, nudged,
+                                         out_root=os.path.join(work, "train_parity"),
+                                         batch=batch, n_epochs=TRAIN_PARITY_EPOCHS,
+                                         steps=TRAIN_PARITY_STEPS)
+            c = tpp.compare(runs["host"], runs["card"], runs["card_nudged"])
+            first = tpp.rel(runs["host"]["loss"][0], runs["card"]["loss"][0])
+            rows[net] = {"batch": batch, "steps": runs["card"]["n_steps"],
+                         "s": {k: r["seconds"] for k, r in runs.items()},
+                         "first_loss_rel": first,
+                         **{k: c[k] for k in ("ok", "breaches", "val_rel", "val_band",
+                                              "best_val_epoch", "loss_rel_max",
+                                              "param_rel_l2")},
+                         "floor_loss_rel_max": c["floor_diff"]["loss_rel_max"],
+                         "floor_param_rel_l2": c["floor_diff"]["param_rel_l2"]}
+            r = rows[net]
+            print(f"paired training [{net}] batch {batch}, {r['steps']} steps: host against "
+                  f"{card}: first loss {first:.2e} apart, step losses up to "
+                  f"{r['loss_rel_max']:.2e} (floor {r['floor_loss_rel_max']:.2e}), val "
+                  f"{['%.2e' % x for x in r['val_rel']]} (band "
+                  f"{['%.2e' % x for x in r['val_band']]}), best_val {r['best_val_epoch']}, "
+                  f"params {r['param_rel_l2']:.2e} (floor {r['floor_param_rel_l2']:.2e}); "
+                  f"card {r['s']['card']:.2f} s, host {r['s']['host']:.2f} s", flush=True)
+            if not c["ok"]:
+                fail(f"paired training [{net}]: {'; '.join(c['breaches'])}")
+            if first > TRAIN_PARITY_FIRST_REL[net]:
+                fail(f"paired training [{net}]: the host's first loss {first:.2e} off the card's")
+    finally:
+        torch.set_num_threads(threads)
+    launches = launch_counts()
+    wall = time.perf_counter() - t0
+    print(f"paired training: 3 nets x 3 runs in {wall:.2f} s; launches {json.dumps(launches)}",
+          flush=True)
+    return {"nets": rows, "wall_s": wall, "launches": launches}
+
+
 # --------------------------------------------------------------------------
 # affordance labels and the canonical; articulated arm dynamics in the eval
 # --------------------------------------------------------------------------
@@ -2174,7 +2254,7 @@ def affordance_phase(dev, card: str):
 
 
 def dynamics_round(dev, card: str):
-    """``--arm_dynamics 1``: one nut round of 8 objects, at most 2 attempts,
+    """``--arm_dynamics 1``: one nut round of 8 objects, at most 1 attempt,
     through ``eval_round`` (K1 and K2 held on its gate and frame), every
     ``dynamicize_schedule`` call timed (synchronised) with its largest
     |achieved - scheduled| joint error; ``no_host_waits`` over a 20-waypoint
@@ -2194,7 +2274,7 @@ def dynamics_round(dev, card: str):
 
     simarm.dynamicize_schedule = recorder
     try:
-        launches, out = eval_round(dev, "arm-dynamics round", "nut", 8, 2, arm_dynamics=True)
+        launches, out = eval_round(dev, "arm-dynamics round", "nut", 8, 1, arm_dynamics=True)
     finally:
         simarm.dynamicize_schedule = entry
     for c in calls:
@@ -2924,8 +3004,8 @@ def main() -> None:
 
 def run_all(dev, logs, card, work) -> None:
     """Every phase, then the ``nets``, ``grasp_db``, ``training``,
-    ``affordance``, ``arm_dynamics``, ``paired_pick``, ``remaining_modules``,
-    ``parallel`` and ``kernels`` lines."""
+    ``train_parity``, ``affordance``, ``arm_dynamics``, ``paired_pick``,
+    ``remaining_modules``, ``parallel`` and ``kernels`` lines."""
     check_box_hits_variants(dev)
     k1_random = check_box_hits(dev)
     scene, state, params, launches, times = main_path(dev)
@@ -2990,6 +3070,7 @@ def run_all(dev, logs, card, work) -> None:
     db_launches, grasp_db = grasp_db_phase(dev)
     td_launches, tdata, packed_dir = training_data_phase(dev, work)
     training = training_phase(dev, packed_dir, work)
+    train_parity = train_parity_phase(dev, card, packed_dir, work)
     aff_launches, affordance = affordance_phase(dev, card)
     dyn_launches, dyn = dynamics_round(dev, card)
     paired = paired_pick_phase(dev, card)
@@ -3132,6 +3213,7 @@ def run_all(dev, logs, card, work) -> None:
     print(json.dumps({"training": {"data": {k: v for k, v in tdata.items()
                                             if not k.startswith("k2_")},
                                    "nets": training}}), flush=True)
+    print(json.dumps({"train_parity": train_parity}), flush=True)
     print(json.dumps({"affordance": affordance}), flush=True)
     print(json.dumps({"arm_dynamics": {k: dyn[k] for k in (
         "tally", "attempts", "stage_s", "wall_s", "launches", "dynamicize")}}), flush=True)

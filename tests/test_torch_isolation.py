@@ -35,6 +35,8 @@ for m in pkgutil.walk_packages(catgrasp_tpu_torch.__path__, "catgrasp_tpu_torch.
 import chip_smoke
 from scripts import affordance_protocol  # the smoke's affordance comparisons
 from scripts import paired_pick_protocol  # the smoke's paired picks
+from scripts import train_parity_protocol  # the smoke's paired training, its port half
+from scripts import train_offline_score, train_loop_chain  # the training loop's scoring
 names = {"jax", "flax", "msgpack", "catgrasp_tpu"}
 bad = sorted(n for n in sys.modules
              if n in names or any(n.startswith(p + ".") for p in names))
