@@ -8,7 +8,10 @@ make-*-training-data analog done once at scale: a single pass over the
 scene records writes fixed-shape binary rows, and training iterates
 zero-copy memmap slices with the SAME augmentation semantics as
 `datasets.py` (resample / dropout / normalize / y-flip), vectorized over
-the batch.
+the batch.  Each batch's parts are spans of ``utils/profiling.py``:
+``input.read`` (the memmapped rows), ``input.resample`` (each row's points)
+and ``input.transform`` (frame, flip, normalisation, labels), each closed
+before the batch is yielded.
 
 Layout under ``{out_dir}/``:
   meta.json                  counts + row shapes
@@ -26,6 +29,7 @@ import os
 import numpy as np
 
 from . import labels
+from ..utils import profiling
 
 META = "meta.json"
 
@@ -160,16 +164,19 @@ class PackedNunocs:
                  else np.arange(len(self)))
         for i in range(0, len(order) - batch_size + 1, batch_size):
             rows = np.sort(order[i:i + batch_size])
-            raw = np.asarray(self.arr[rows], np.float32)  # (B, P, 9)
-            B = raw.shape[0]
-            idx = _batch_indices(self.rng, self.P, n_pts, B, dp, dr)
-            take = np.take_along_axis(raw, idx[..., None], axis=1)
-            xyz, nrm, nocs = take[..., :3], take[..., 3:6], take[..., 6:9]
-            center = (xyz.max(1) + xyz.min(1)) / 2
-            scale = np.maximum((xyz.max(1) - xyz.min(1)).max(-1), 1e-9)
-            xyz = (xyz - center[:, None]) / scale[:, None, None]
-            yield {"x": np.concatenate([xyz, nrm], axis=-1).astype(np.float32),
-                   "nocs": nocs.astype(np.float32)}
+            with profiling.span("input.read"):
+                raw = np.asarray(self.arr[rows], np.float32)  # (B, P, 9)
+            with profiling.span("input.resample"):
+                idx = _batch_indices(self.rng, self.P, n_pts, raw.shape[0], dp, dr)
+                take = np.take_along_axis(raw, idx[..., None], axis=1)
+            with profiling.span("input.transform"):
+                xyz, nrm, nocs = take[..., :3], take[..., 3:6], take[..., 6:9]
+                center = (xyz.max(1) + xyz.min(1)) / 2
+                scale = np.maximum((xyz.max(1) - xyz.min(1)).max(-1), 1e-9)
+                xyz = (xyz - center[:, None]) / scale[:, None, None]
+                batch = {"x": np.concatenate([xyz, nrm], axis=-1).astype(np.float32),
+                         "nocs": nocs.astype(np.float32)}
+            yield batch
 
 
 class PackedSeg:
@@ -192,10 +199,12 @@ class PackedSeg:
                  else np.arange(len(self)))
         for i in range(0, len(order) - batch_size + 1, batch_size):
             rows = np.sort(order[i:i + batch_size])
-            raw = np.asarray(self.arr[rows], np.float32)
+            with profiling.span("input.read"):
+                raw = np.asarray(self.arr[rows], np.float32)
             if n_pts < self.P:
-                idx = _batch_indices(self.rng, self.P, n_pts, raw.shape[0], 0, 0)
-                raw = np.take_along_axis(raw, idx[..., None], axis=1)
+                with profiling.span("input.resample"):
+                    idx = _batch_indices(self.rng, self.P, n_pts, raw.shape[0], 0, 0)
+                    raw = np.take_along_axis(raw, idx[..., None], axis=1)
             yield {"xyz": raw[..., :3], "normal": raw[..., 3:6],
                    "offsets": raw[..., 6:9],
                    "instance_id": raw[..., 9].astype(np.int32)}
@@ -242,21 +251,25 @@ class PackedGrasp:
                      else np.arange(len(self)))
         for i in range(0, len(order) - batch_size + 1, batch_size):
             ks = order[i:i + batch_size]
-            raw = self.clouds[self.cloud_row[ks]]  # f16, stays f16 until cut
+            with profiling.span("input.read"):
+                raw = self.clouds[self.cloud_row[ks]]  # f16, stays f16 until cut
             B = raw.shape[0]
             # subsample BEFORE the frame transform AND before the f32 cast:
             # converting the full (B, 8192, 6) row to f32 was half the
             # single-core loader cost
-            idx = _batch_indices(self.rng, self.P, n_pts, B, 0, 0)
-            raw = np.take_along_axis(raw, idx[..., None], axis=1).astype(np.float32)
-            T = np.linalg.inv(self.pose[ks])  # cam -> grasp frame
-            xyz = np.einsum("bij,bpj->bpi", T[:, :3, :3], raw[..., :3]) \
-                + T[:, None, :3, 3]
-            nrm = np.einsum("bij,bpj->bpi", T[:, :3, :3], raw[..., 3:6])
-            if flip_p > 0:
-                flip = self.rng.random(B) <= flip_p
-                xyz[flip, :, 1] *= -1
-                nrm[flip, :, 1] *= -1
-            score_bin = np.digitize(self.score[ks], self.classes) - 1
-            yield {"x": np.concatenate([xyz, nrm], axis=-1).astype(np.float32),
-                   "label": score_bin.astype(np.int32)}
+            with profiling.span("input.resample"):
+                idx = _batch_indices(self.rng, self.P, n_pts, B, 0, 0)
+                raw = np.take_along_axis(raw, idx[..., None], axis=1).astype(np.float32)
+            with profiling.span("input.transform"):
+                T = np.linalg.inv(self.pose[ks])  # cam -> grasp frame
+                xyz = np.einsum("bij,bpj->bpi", T[:, :3, :3], raw[..., :3]) \
+                    + T[:, None, :3, 3]
+                nrm = np.einsum("bij,bpj->bpi", T[:, :3, :3], raw[..., 3:6])
+                if flip_p > 0:
+                    flip = self.rng.random(B) <= flip_p
+                    xyz[flip, :, 1] *= -1
+                    nrm[flip, :, 1] *= -1
+                score_bin = np.digitize(self.score[ks], self.classes) - 1
+                batch = {"x": np.concatenate([xyz, nrm], axis=-1).astype(np.float32),
+                         "label": score_bin.astype(np.int32)}
+            yield batch

@@ -27,6 +27,7 @@ package resumes in the other.
 """
 from __future__ import annotations
 
+import itertools
 import os
 import time
 from dataclasses import dataclass, field
@@ -263,7 +264,11 @@ class Trainer:
         revert to the best_val parameters and restart the optimizer at
         start_lr x plateau_gamma^k (its schedule over
         ``cfg["steps_per_epoch"]``, default 100, as the JAX trainer does).
-        Losses stay on the device between log intervals."""
+        Losses stay on the device between log intervals.  Each batch's
+        fetch (``input.next``), copy (``input.to_device``) and enqueue
+        (``train.step``), the evaluations and the checkpoints are spans of
+        ``utils/profiling.py``; their totals over the call are its
+        ``timing`` event in ``metrics.jsonl`` and ``profiling.last_fit()``."""
         n_epochs = n_epochs or self.cfg.get("n_epochs", 1)
         n_epochs = max(n_epochs, start_epoch + 1)
         if max_seconds is None:
@@ -277,7 +282,7 @@ class Trainer:
         dev = model_device(state.model)
         os.makedirs(self.ckpt_dir, exist_ok=True)
         mlog = MetricsLogger(f"{self.ckpt_dir}/metrics.jsonl", run=type(self.model).__name__)
-        sw = profiling.Stopwatch()
+        spans = profiling.begin_fit()
         expired = False
         for epoch in range(start_epoch, n_epochs):
             loss_sum, loss_n, window = 0.0, 0, []
@@ -290,9 +295,15 @@ class Trainer:
                     window.clear()
 
             with profiling.trace():  # CATGRASP_TRACE_DIR gates capture
-                for i, batch in enumerate(self.train_data()):
-                    batch = to_device(batch, dev)
-                    with sw.section("train_step"):
+                batches = iter(self.train_data())
+                for i in itertools.count():
+                    with profiling.span("input.next"):
+                        batch = next(batches, None)
+                    if batch is None:
+                        break
+                    with profiling.span("input.to_device", device_work=True):
+                        batch = to_device(batch, dev)
+                    with profiling.span("train.step", device_work=True):  # the enqueue
                         state, loss, _ = step_fn(state, batch)
                     window.append(loss)  # on the device until the drain
                     if i % log_every == log_every - 1:
@@ -315,8 +326,7 @@ class Trainer:
                 self.best_train = train_loss
                 save_checkpoint(f"{self.ckpt_dir}/best_train.ckpt", state, epoch)
             if self.val_data is not None:
-                with sw.section("evaluate"):
-                    val_loss = self.evaluate(state)
+                val_loss = self.evaluate(state)
                 rec["val_loss"] = val_loss
                 if val_loss < self.best_val:
                     self.best_val = val_loss
@@ -346,7 +356,7 @@ class Trainer:
                     print(f"wall-clock bound {max_seconds}s reached at epoch {epoch}; stopping",
                           flush=True)
                 break
-        mlog.event("timing", **sw.report())
+        mlog.event("timing", **profiling.end_fit(spans))
         mlog.close()
         return state
 
@@ -358,12 +368,12 @@ class Trainer:
         and the training stream left where it was)."""
         dev = model_device(state.model)
         losses = []
-        with torch.no_grad():
+        with profiling.span("train.evaluate", device_work=True), torch.no_grad():
             for batch in self.val_data():
                 with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
                     torch.manual_seed(0)
                     losses.append(self.loss_fn(state.model, to_device(batch, dev), True)[0])
-        return float(torch.stack(losses).mean()) if losses else float("inf")
+            return float(torch.stack(losses).mean()) if losses else float("inf")
 
 
 # --------------------------------------------------------------------------
@@ -374,10 +384,11 @@ class Trainer:
 def save_checkpoint(path: str, state: TrainState, epoch: int) -> None:
     """The JAX trainer's checkpoint: a msgpack map of the flax parameter
     blob, the optax state blob, the step and the epoch (no pickle)."""
-    blob = {"params": ckpt.packb(convert.flax_params(state.model.state_dict())),
-            "opt_state": ckpt.packb(state.tx.state_tree()),
-            "step": int(state.step), "epoch": int(epoch)}
-    ckpt.write_checkpoint_blob(path, blob)
+    with profiling.span("ckpt.save", device_work=True):
+        blob = {"params": ckpt.packb(convert.flax_params(state.model.state_dict())),
+                "opt_state": ckpt.packb(state.tx.state_tree()),
+                "step": int(state.step), "epoch": int(epoch)}
+        ckpt.write_checkpoint_blob(path, blob)
 
 
 read_checkpoint_blob = ckpt.read_checkpoint_blob

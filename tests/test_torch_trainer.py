@@ -240,7 +240,7 @@ def test_fit_improves_and_checkpoints(tmp_path):
     lines = _events(tmp_path)
     assert sum(1 for e in lines if e["kind"] == "epoch") == 2
     assert all("train_loss" in e and "val_loss" in e for e in lines if e["kind"] == "epoch")
-    assert any(e["kind"] == "timing" and "train_step" in e for e in lines)
+    assert any(e["kind"] == "timing" and {"input.next", "train.step"} <= set(e) for e in lines)
 
 
 def test_resume_roundtrip(tmp_path):
