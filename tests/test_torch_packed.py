@@ -96,6 +96,45 @@ def test_packed_batches_are_identical(packs, kind, cfg_name, bs, phase):
     assert n >= 2
 
 
+@pytest.fixture(scope="module")
+def grasp_split(tmp_path_factory):
+    """A grasp split written by hand at the training shape: 24 clouds of
+    8,192 x 6 f16 and 480 keys, rigid poses with non-zero translations (one
+    with none), scores over all ten bins.  Some points are exact zeros, and
+    some normals, where a sum of signed zero products must read as einsum's."""
+    out = tmp_path_factory.mktemp("grasp_split")
+    rng = np.random.default_rng(11)
+    rows = rng.normal(0, 0.05, (24, 8192, 6))
+    rows[..., 3:] /= np.linalg.norm(rows[..., 3:], axis=-1, keepdims=True)
+    rows[:, :64, 3:] = 0
+    rows[:, 64:96] = 0
+    rows.astype(np.float16).tofile(out / "grasp_cloud.bin")
+    q, _ = np.linalg.qr(rng.normal(size=(480, 3, 3)))
+    pose = np.tile(np.eye(4), (480, 1, 1))
+    pose[:, :3, :3] = q
+    pose[:, :3, 3] = rng.normal(0, 0.3, (480, 3))
+    pose[0, :3, 3] = 0
+    np.savez(out / "grasp_keys.npz", pose=pose.astype(np.float32),
+             score=((np.arange(480) % 10 + rng.uniform(0.05, 0.95, 480)) / 10).astype(np.float32),
+             cloud_row=rng.integers(0, 24, 480).astype(np.int64))
+    (out / "meta.json").write_text(json.dumps({"n_grasp_cloud": 24, "grasp_scene_pts": 8192,
+                                               "n_grasp_keys": 480}))
+    return str(out)
+
+
+@pytest.mark.parametrize("phase", ["train", "val"])
+def test_packed_grasp_batches_are_identical_at_training_shape(grasp_split, phase):
+    """Two epochs of ``PackedGrasp`` at the grasp net's batch, 240 x 2,048
+    points of 8,192-point rows (the flip and the bin-balanced draws in
+    training): the same bytes as JAX's einsum frame transform."""
+    cfg = load_config("config_grasp.yml")
+    assert (cfg["batch_size"], cfg["n_pts"]) == (240, 2048)
+    dj = jpacked.PackedGrasp(grasp_split, cfg, phase=phase, seed=5)
+    dp = packed.PackedGrasp(grasp_split, cfg, phase=phase, seed=5)
+    n = sum(_assert_batches_equal(dj.batches(240), dp.batches(240)) for _ in range(2))
+    assert n == 4
+
+
 def test_unpacked_datasets_are_identical(scenes):
     cfg_n, cfg_s, cfg_g = (load_config(f"config_{n}.yml") for n in ("nunocs", "seg", "grasp"))
     cfg_s["n_pts"] = 2000
