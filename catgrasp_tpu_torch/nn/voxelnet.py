@@ -6,7 +6,10 @@ cm, and an objectness logit).
 Precision follows the JAX module's default ``compute_dtype``: the
 convolutions and transposed convolutions run in bfloat16 (inputs, kernels,
 outputs and the bias add), every GroupNorm and the head in float32; the
-parameters stay float32 and gradients flow through the same casts.
+parameters stay float32 and gradients flow through the same casts.  The
+head's GroupNorm and its ReLU run on the card through the hand-written op
+``ops/row_group_norm.py:row_group_norm_relu`` (CUDA kernels for rows that
+are each their own sample), on the CPU through its plain version.
 Convolutions pad SAME (1 voxel for 3x3x3).  Submodules carry the flax names
 (``VoxelUNet_0.ConvBlock_3.Conv_1``) for ``convert.flax_state_dict``;
 the grid runs in torch's (B, C, D, H, W) layout.  A batch of scenes (the
@@ -26,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import constant
+from ..ops.row_group_norm import row_group_norm_relu
 from ..utils.profiling import span
 from .pointnet import GN_EPS
 
@@ -150,9 +154,12 @@ class SegNet(nn.Module):
             per_pt = torch.take_along_dim(vox, flat[..., None], dim=1)  # one gather
         with span("seg.head", device_work=True):
             # the head runs on the (B N, C) points: its GroupNorm normalises
-            # each point alone, as flax's does on one scene's (N, 64)
+            # each point alone, as flax's does on one scene's (N, 64); on the
+            # card it and its ReLU are one hand-written op, forward and backward
             h = torch.cat([xyz - origin[:, None], feats, per_pt], dim=-1).reshape(B * N, -1)
-            h = F.relu(self.Dense_1(F.relu(self.GroupNorm_0(self.Dense_0(h)))))
+            gn = self.GroupNorm_0
+            h = row_group_norm_relu(self.Dense_0(h), gn.weight, gn.bias, gn.num_groups, gn.eps)
+            h = F.relu(self.Dense_1(h))
             # offsets bounded to the parts' scale (1-5 cm)
             off = 0.05 * torch.tanh(self.Dense_2(h))
             return off.reshape(B, N, 3), self.Dense_3(h)[:, 0].reshape(B, N)

@@ -17,7 +17,7 @@ import subprocess
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.realpath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
-KERNELS = ("box_hits", "march_csg", "fused_rollout")
+KERNELS = ("box_hits", "march_csg", "fused_rollout", "row_group_norm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

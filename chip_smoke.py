@@ -6,7 +6,7 @@
 Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the three CUDA kernels with ``nvcc`` from ``catgrasp_tpu_torch/csrc``;
+2. build the CUDA kernels with ``nvcc`` from ``catgrasp_tpu_torch/csrc``;
 3. kernel K1 ``box_hits`` against its plain PyTorch version: every compiled
    variant and the one with run-time counts on a ragged case, then the grasp
    filter's gate as the filter launches it (254,848 random poses; 512 points
@@ -76,9 +76,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the seg net's segments with MeanShift and their bandwidth retries, the
    NUNOCS net's RANSAC pose, the grasp net's P(G); nut, 8 objects, the
    canonical, at most 2 attempts) with every launch count set to 0 just
-   before and read just after: tallies, outcomes, stage times with the
-   nets' own; K1 held against its plain version on the round's
-   NOCS-transfer gate and K2 on its frame; each net's device time a call
+   before and read just after (R1 once a seg forward): tallies, outcomes,
+   stage times with the nets' own; K1 held against its plain version on the
+   round's NOCS-transfer gate and K2 on its frame; each net's device time a call
    at full width, with its multiply-adds; and the seg net's bf16 forward on
    the card held against the same module on the CPU, on the round's cloud,
    and its U-Net's two grid forms bit for bit;
@@ -106,10 +106,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the same bodies seen in every scene, depth within 2e-3 m; per-body pixel counts
    within 0.5% on the visibility frames), with times and bounds; every file
    through the port's ``load_scene``; ``pack_split`` with the 12 nut grasp
-   DBs; then each net (seg: 4 scenes of 20,000 points at 96x96x48 x 2 mm;
-   NUNOCS: 34 x 8,192 points; grasp: 240 x 2,048, dropout 0.4) trained on
-   the packed rows through ``Trainer.fit`` for 1 epoch or 20 steps,
-   whichever is fewer: the predicter's load of its ``best_train.ckpt``
+   DBs; then kernel R1 ``row_group_norm_relu`` (the seg head's GroupNorm +
+   ReLU) against its plain version at the seg cell's head shape (2.2 M rows
+   x 64 f32): y and the three gradients within their tolerances, two
+   backward calls bit for bit, the forward's and backward's kernel times
+   beside the plain version's and their bytes bounds; then each net (seg: 4
+   scenes of 20,000 points at 96x96x48 x 2 mm; NUNOCS: 34 x 8,192 points;
+   grasp: 240 x 2,048, dropout 0.4) trained on the packed rows through
+   ``Trainer.fit`` for 1 epoch or 20 steps, whichever is fewer (R1 launched
+   3 times a seg step, never for the PointNets): the predicter's load of its ``best_train.ckpt``
    against the trained module, ms a step (CUDA events), samples/s, peak
    memory, launches and busy share over 10 profiled steps, no host wait in
    a step, a ``last.ckpt`` resumed in a fresh state giving the same next
@@ -120,9 +125,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    (seg 1, NUNOCS 1, grasp 4 clouds a batch at full width), on the card,
    on the card from parameters nudged 1e-6 relative (the floor) and on the
    host, with every launch count set to 0 just before and read just after
-   (no kernel): the host's val losses within max(2 x the floor's
-   difference, 1e-3) relative of the card's, the same ``best_val`` epoch,
-   its first loss within 2^-8 (seg, bf16 convs) or 1e-3 of the card's;
+   (R1 in the seg net's card runs, no other kernel): the host's val losses
+   within max(2 x the floor's difference, 1e-3) relative of the card's, the
+   same ``best_val`` epoch, its first loss within 2^-8 (seg, bf16 convs) or 1e-3 of the card's;
 15. affordance labels and the canonical: nut/train/0's 4,096 tracked DB
    grasps x 1,024 affordance points through ``generate_affordance`` in one
    dispatch, with every launch count set to 0 just before and read just
@@ -156,10 +161,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    ``save_state`` / ``restore_state`` and the two futures' difference,
    ``scene_from_record`` on a training-data record; ``rescore_grasp_db
    --write --rebalance`` on the drift probe's 256 poses; ``calibrate_bandwidth``
-   with the tracked seg net on the training-data scenes; the cluster
+   with the tracked seg net on the training-data scenes (R1 launched); the cluster
    reducers on the card against the CPU;
 19. ``parallel/``, with every launch count set to 0 just before and read
-   just after (no kernel on this path): ``make_mesh()`` over the real
+   just after (R1 in the seg net's steps, no other kernel): ``make_mesh()`` over the real
    devices; ``sharded_rollout`` of 64 nut piles of the front half's pile
    config on a virtual mesh of 4 x the card and on the real mesh, against
    one ``rollout_batch`` (within 1e-5 m after 10 steps; after 50 the
@@ -219,6 +224,21 @@ def cuda_ms(fn, reps: int, warm_up: bool = True) -> float:
     return float(np.median(times))
 
 
+def queued_ms(fn, reps: int = 20) -> float:
+    """Device ms a call of ``fn`` from two CUDA events around ``reps`` calls
+    queued back to back (after one warm-up call): the host's launches hide
+    behind the queue, as in a training step, where ``cuda_ms``'s one call
+    between events also counts the device waiting for the launch."""
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
 def kernel_ms(fn, kernel: str, reps: int = 20):
     """Mean device time of one launch of the CUDA kernel named ``kernel``
     over ``reps`` calls of ``fn`` (each launches it once), in ms, from
@@ -251,6 +271,18 @@ def timed(fn, kernel: str):
     wrapper = cuda_ms(fn, 25)
     k = kernel_ms(fn, kernel)
     return (k, wrapper, "torch.profiler") if k is not None else (wrapper, wrapper, "cuda events")
+
+
+def launch_counts(zero: bool = False) -> dict:
+    """Every kernel's launch count (set to 0 first with ``zero``): K1-K3 and
+    R1, the seg head's GroupNorm + ReLU (one launch forward, two backward)."""
+    from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march, row_group_norm
+    fns = {"box_hits": collision.box_hits, "march_csg": render_march.march_csg,
+           "rollout_fused": fused_rollout.rollout_fused,
+           "row_group_norm_relu": row_group_norm.row_group_norm_relu}
+    for fn in fns.values():
+        fn.launches = 0 if zero else fn.launches
+    return {k: fn.launches for k, fn in fns.items()}
 
 
 def random_poses(rng, n: int) -> np.ndarray:
@@ -1046,21 +1078,19 @@ def bench_path(dev):
     """``catgrasp_tpu_torch.bench`` once at its own sizes, with every launch
     count set to 0 just before and read just after."""
     from catgrasp_tpu_torch import bench
-    from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
+    from catgrasp_tpu_torch.ops import collision
     from catgrasp_tpu_torch.sim.types import index_scenes
 
-    counters = {"box_hits": collision.box_hits, "march_csg": render_march.march_csg,
-                "rollout_fused": fused_rollout.rollout_fused}
-    for fn in counters.values():
-        fn.launches = 0
+    launch_counts(zero=True)
     keep = {}
     t0 = time.perf_counter()
     record = bench.run(dev, keep=keep)
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = launch_counts()
     print(f"bench path ({time.perf_counter() - t0:.2f} s): {json.dumps(record)}", flush=True)
     print(f"bench path launches: {json.dumps(launches)}", flush=True)
-    if launches != {"box_hits": 9, "march_csg": 9, "rollout_fused": 5}:
+    if launches != {"box_hits": 9, "march_csg": 9, "rollout_fused": 5,
+                    "row_group_norm_relu": 0}:
         fail(f"bench path launches {launches}: expected 5 K3 calls (1 warm-up + 4), 9 K1 calls "
              f"and 9 K2 calls (one a batch of 8 frames)")
     rates = [record["value"], *record["extra"].values()]
@@ -1130,12 +1160,9 @@ def bench_path(dev):
 
 
 def main_path(dev):
-    from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
     from catgrasp_tpu_torch.pipelines import run_grasp_simulation as rgs
 
-    collision.box_hits.launches = 0
-    render_march.march_csg.launches = 0
-    fused_rollout.rollout_fused.launches = 0
+    launch_counts(zero=True)
     t0 = time.perf_counter()
     scene = rgs.setup_scene("nut", n_objects=5, render_hw=(384, 512), device=dev)
     torch.cuda.synchronize()
@@ -1146,9 +1173,7 @@ def main_path(dev):
     res = rgs.attempt_front(scene, state, params, rng, gen, timings=times)
     tried = [t["cone"] | {"seg": t["seg"]} for t in res.tried]
     torch.cuda.synchronize()
-    launches = {"box_hits": collision.box_hits.launches,
-                "march_csg": render_march.march_csg.launches,
-                "rollout_fused": fused_rollout.rollout_fused.launches}
+    launches = launch_counts()
     times["total_s"] = time.perf_counter() - t0
     print("main path stage times (s, synchronised): "
           + json.dumps({k: round(v, 6) for k, v in times.items()}), flush=True)
@@ -1181,6 +1206,8 @@ def main_path(dev):
           f"valid)", flush=True)
     if launches["rollout_fused"] != 0:
         fail("the eval's settle runs the engine, not rollout_fused")
+    if launches["row_group_norm_relu"] != 0:
+        fail("the oracle eval's front half runs no seg net, yet R1 launched")
     out = res.out
     if out["depth"].shape != (384, 512) or not all(torch.isfinite(v).all() for v in out.values()):
         fail("render output has the wrong shape or non-finite values")
@@ -1216,7 +1243,7 @@ def eval_round(dev, label: str, cls: str = "nut", n_objects: int = 8, max_attemp
     import tempfile
 
     from catgrasp_tpu_torch.core.symmetry import get_symmetry_tfs
-    from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
+    from catgrasp_tpu_torch.ops import collision
     from catgrasp_tpu_torch.pipelines import run_grasp_simulation as rgs
     from catgrasp_tpu_torch.render import raymarch
 
@@ -1242,9 +1269,7 @@ def eval_round(dev, label: str, cls: str = "nut", n_objects: int = 8, max_attemp
     timings = {}
     collision.box_hits_depths = recorder
     raymarch.render = render_recorder
-    collision.box_hits.launches = 0
-    render_march.march_csg.launches = 0
-    fused_rollout.rollout_fused.launches = 0
+    launch_counts(zero=True)
     t0 = time.perf_counter()
     try:
         c = rgs.simulate_grasp_rounds(cls, n_rounds=1, n_objects=n_objects, seed=0,
@@ -1255,9 +1280,7 @@ def eval_round(dev, label: str, cls: str = "nut", n_objects: int = 8, max_attemp
         collision.box_hits_depths = entry
         raymarch.render = render
     wall = time.perf_counter() - t0
-    launches = {"box_hits": collision.box_hits.launches,
-                "march_csg": render_march.march_csg.launches,
-                "rollout_fused": fused_rollout.rollout_fused.launches}
+    launches = launch_counts()
     with open(metrics) as fh:
         events = [json.loads(line) for line in fh]
     tally = {k: getattr(c, k) for k in ("num_objects", "num_attempts", "num_stable_grasp",
@@ -1291,6 +1314,9 @@ def eval_round(dev, label: str, cls: str = "nut", n_objects: int = 8, max_attemp
              f"{renders_expected[0]} to {renders_expected[1]} (one a CSG render)")
     if launches["rollout_fused"] != 0:
         fail(f"{label}: the eval settles with the engine, not rollout_fused")
+    if kw.get("oracle", True) and launches["row_group_norm_relu"] != 0:
+        fail(f"{label}: an oracle round runs no seg net, yet R1 launched "
+             f"{launches['row_group_norm_relu']} times")
     out = {"tally": tally, "attempts": attempts, "stage_s": stage, "wall_s": wall,
            "launches": launches, "segments_filtered": len(filters), "render": renders[-1]}
     if not hold:
@@ -1487,6 +1513,9 @@ def learned_round(dev):
     if missing or not all(calls.values()):
         fail(f"learned round: the nets did not all run (net calls {calls}, no time in {missing})")
     print(f"learned round: net calls {json.dumps(calls)}", flush=True)
+    if launches["row_group_norm_relu"] != calls["seg"]:
+        fail(f"learned round: R1 launched {launches['row_group_norm_relu']} times for "
+             f"{calls['seg']} seg forwards (one each)")
 
     rec = {"load_s": load_s, "calls": calls}
     with torch.inference_mode():
@@ -1573,7 +1602,7 @@ def grasp_db_phase(dev):
     from catgrasp_tpu_torch.core import transforms as tf
     from catgrasp_tpu_torch.geom import csg, primitives
     from catgrasp_tpu_torch.grasp.gripper import Gripper
-    from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
+    from catgrasp_tpu_torch.ops import collision
     from catgrasp_tpu_torch.pipelines import generate_grasp as pgg
     from catgrasp_tpu_torch.pipelines import rescore_grasp_db as rdb
     from catgrasp_tpu_torch.sim import env_grasp as eg
@@ -1589,9 +1618,7 @@ def grasp_db_phase(dev):
         return calls[-1][1]
 
     collision.box_hits_depths = recorder
-    collision.box_hits.launches = 0
-    render_march.march_csg.launches = 0
-    fused_rollout.rollout_fused.launches = 0
+    launch_counts(zero=True)
     info = {}
     t0 = time.perf_counter()
     try:
@@ -1600,9 +1627,7 @@ def grasp_db_phase(dev):
     finally:
         collision.box_hits_depths = entry
     wall = time.perf_counter() - t0
-    launches = {"box_hits": collision.box_hits.launches,
-                "march_csg": render_march.march_csg.launches,
-                "rollout_fused": fused_rollout.rollout_fused.launches}
+    launches = launch_counts()
     scores, n = db["scores"], len(db["scores"])
     hist = np.histogram(scores, bins)[0].tolist()
     bal = pgg.balance_score_bins(db, bins, int(cfg["max_per_score_bin"]))
@@ -1616,7 +1641,8 @@ def grasp_db_phase(dev):
           f"{info['scoring_s']:.3f} s ({rollouts_s:,.1f} rollouts/s of "
           f"{eg.N_CLOSE_STEPS + eg.N_SHAKE_STEPS} steps)", flush=True)
     print(f"grasp DB launches: {json.dumps(launches)}", flush=True)
-    if launches != {"box_hits": 2, "march_csg": 0, "rollout_fused": 0} or len(calls) != 2:
+    if launches != {"box_hits": 2, "march_csg": 0, "rollout_fused": 0,
+                    "row_group_norm_relu": 0} or len(calls) != 2:
         fail(f"grasp DB: launches {launches}, {len(calls)} K1 calls recorded: expected the "
              f"filter's 2 K1 launches and nothing else")
     if n_poses != 42_700:
@@ -1777,7 +1803,7 @@ def training_data_phase(dev, work: str):
 
     from catgrasp_tpu_torch.config.loader import load_config
     from catgrasp_tpu_torch.data import labels, packed
-    from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
+    from catgrasp_tpu_torch.ops import render_march
     from catgrasp_tpu_torch.pipelines import generate_pile_data as gpd
     from catgrasp_tpu_torch.pipelines import pack_training_data as ptd
     from catgrasp_tpu_torch.render import raymarch
@@ -1787,17 +1813,13 @@ def training_data_phase(dev, work: str):
     K, H, W = gpd.frame_geometry(cfg)
     out = os.path.join(work, "train")
     timings = {}
-    collision.box_hits.launches = 0
-    render_march.march_csg.launches = 0
-    fused_rollout.rollout_fused.launches = 0
+    launch_counts(zero=True)
     t0 = time.perf_counter()
     gpd.generate_scenes("nut", "train", N_DATA_SCENES, out, cfg=cfg, batch=SCENE_BATCH,
                         device=dev, timings=timings)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"box_hits": collision.box_hits.launches,
-                "march_csg": render_march.march_csg.launches,
-                "rollout_fused": fused_rollout.rollout_fused.launches}
+    launches = launch_counts()
     n_batches = N_DATA_SCENES // SCENE_BATCH
     print(f"training data: {N_DATA_SCENES} nut train scenes at {H}x{W} (visibility at "
           f"{H // gpd.VIS_DOWNSCALE}x{W // gpd.VIS_DOWNSCALE}), {n_batches} batches of "
@@ -1805,7 +1827,8 @@ def training_data_phase(dev, work: str):
           f"(each stage ends in a synchronise); stages s {json.dumps(timings)} (write_s: the "
           f"writer threads, beside the device's work); launches {json.dumps(launches)}, "
           f"{launches['march_csg'] / n_batches:.1f} K2 launches a batch", flush=True)
-    if launches != {"box_hits": 0, "march_csg": 2 * n_batches, "rollout_fused": 0}:
+    if launches != {"box_hits": 0, "march_csg": 2 * n_batches, "rollout_fused": 0,
+                    "row_group_norm_relu": 0}:
         fail(f"training data: launches {launches}, expected 2 K2 launches a batch and "
              f"nothing else")
 
@@ -1925,6 +1948,115 @@ def training_data_phase(dev, work: str):
     return launches, record, packed_dir
 
 
+ROW_GN_ROWS = 2_200_000  # the seg cell's head: 110 scenes x 20,000 points
+
+
+def check_row_group_norm(dev) -> dict:
+    """Kernel R1 ``row_group_norm_relu`` (``csrc/row_group_norm.cu``, the seg
+    head's GroupNorm + ReLU) against its plain version at the seg cell's
+    head shape, x (2.2 M, 64) f32 in 8 groups: y, dx, dgamma and dbeta
+    within the tolerances of ``tests/test_torch_kernels_cuda.py``'s
+    ``test_row_group_norm_relu_matches_plain`` (their reasons are there),
+    dx, dgamma and dbeta the same bits over two backward calls; then the
+    forward's and the backward's kernel times (the backward's two kernels
+    added) beside the plain version's and each pass's bytes bound (forward:
+    read x, write y; backward: read x and dy, write dx)."""
+    import torch.nn.functional as F
+
+    from catgrasp_tpu_torch.nn.pointnet import GN_EPS
+    from catgrasp_tpu_torch.ops import row_group_norm as rgn
+
+    m, op, plain = ROW_GN_ROWS, rgn.row_group_norm_relu, rgn.row_group_norm_relu_plain
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def rand(*shape, normal=True):
+        return (torch.randn if normal else torch.rand)(*shape, device=dev, generator=gen)
+
+    # rows of their own offset and scale, gamma near 1; dy zero within 1e-3
+    # of the ReLU's kink, where the two sides may take different branches
+    x = 2 * rand(m, 1) + (0.5 + 1.5 * rand(m, 1, normal=False)) * rand(m, 64)
+    w, b = 1 + 0.2 * rand(64), 0.2 * rand(64)
+    pre = F.group_norm(x, 8, w, b, GN_EPS)
+    dy = torch.where(pre.abs() < 1e-3, 0.0, rand(m, 64))
+
+    def grads(fn):
+        xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
+        y = fn(xs, ws, bs, 8, GN_EPS)
+        y.backward(dy)
+        return y.detach(), xs.grad, ws.grad, bs.grad
+
+    n0 = op.launches
+    k, k2, p = grads(op), grads(op), grads(plain)
+    torch.cuda.synchronize()
+    if op.launches != n0 + 6:
+        fail(f"R1: {op.launches - n0} launches for two forwards and backwards, expected 6")
+    xg = x.double().view(m, 8, 8)
+    rstd = (xg.var(-1, unbiased=False) + GN_EPS).rsqrt()
+    u = 2.0 ** -20 * (1 + (rstd * xg.abs().amax(-1)).repeat_interleave(8, dim=1))
+    rstd = rstd.repeat_interleave(8, dim=1)
+    g = dy.double() * (pre > 0)
+    gg_max = (g * w.double()).abs().view(m, 8, 8).amax(-1).repeat_interleave(8, dim=1)
+    x_hat = F.group_norm(x.double(), 8, None, None, GN_EPS)
+    err, err_over_tol = {}, {}
+    for name, a, e, tol in (("y", k[0], p[0], u * (1 + p[0].double().abs())),
+                            ("dx", k[1], p[1], u * rstd * (1 + 4 * gg_max)),
+                            ("dgamma", k[2], p[2], (u * g.abs() * (1 + x_hat.abs())).sum(0)),
+                            ("dbeta", k[3], p[3], (u * g.abs()).sum(0))):
+        diff = (a.double() - e.double()).abs()
+        err[name], err_over_tol[name] = float(diff.max()), float((diff / tol).max())
+    repeat = all(torch.equal(a, e) for a, e in zip(k[1:], k2[1:]))
+    half_on = float((pre > 0).float().mean())
+    del xg, rstd, u, g, gg_max, x_hat, diff, tol, k2
+
+    def kernels_ms(fn, names):
+        """(ms, how): the named kernels' device time a call from the
+        profiler's trace, or, where the trace holds none of their launches
+        (late in this process it drops them), from queued calls."""
+        parts = [kernel_ms(fn, name) for name in names]
+        if None in parts:
+            return queued_ms(fn), "cuda events, 20 calls queued"
+        return sum(parts), "torch.profiler"
+
+    def fwd():
+        with torch.no_grad():
+            return op(x, w, b, 8, GN_EPS)
+
+    wrapper_f = cuda_ms(fwd, 25)
+    ms_f, how = kernels_ms(fwd, ("row_gn_fwd",))
+    with torch.no_grad():
+        plain_f = cuda_ms(lambda: plain(x, w, b, 8, GN_EPS), 10)
+    back = {}
+    for name, fn in (("kernel", op), ("plain", plain)):
+        xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
+        y = fn(xs, ws, bs, 8, GN_EPS)
+        back[name] = lambda y=y, ins=(xs, ws, bs): torch.autograd.grad(y, ins, dy,
+                                                                        retain_graph=True)
+    wrapper_b = cuda_ms(back["kernel"], 25)
+    ms_b, how_b = kernels_ms(back["kernel"], ("row_gn_bwd", "row_gn_sum_partials"))
+    plain_b = cuda_ms(back["plain"], 10)
+    del back, y, xs, ws, bs
+    row_bytes = 64 * 4
+    bound_f, bound_b = (n * m * row_bytes / HBM_BYTES_PER_S * 1e3 for n in (2, 3))
+    rec = {"shapes": f"x ({m}, 64) f32, 8 groups of 8 channels, each row its own sample; "
+                     f"{100 * half_on:.1f}% of the ReLU on",
+           "max_abs_err": err, "max_err_over_tol": err_over_tol, "repeat_bit_equal": repeat,
+           "ms": ms_f, "wrapper_ms": wrapper_f, "timing": how, "plain_ms": plain_f,
+           "bound_ms": bound_f, "bound_by": "bytes",
+           "bwd_ms": ms_b, "bwd_wrapper_ms": wrapper_b, "bwd_plain_ms": plain_b,
+           "bwd_bound_ms": bound_b, "bwd_timing": how_b}
+    print(f"R1 row_group_norm_relu at {m:,} rows (the seg cell's head): max |diff| "
+          f"{json.dumps(err)}, over its tolerance {json.dumps(err_over_tol)}; repeated backward "
+          f"bit for bit: {repeat}; forward {ms_f:.4f} ms ({how}), wrapper {wrapper_f:.4f} ms, "
+          f"plain {plain_f:.3f} ms, bound {bound_f:.4f} ms; backward {ms_b:.4f} ms (2 kernels, "
+          f"{how_b}), wrapper {wrapper_b:.4f} ms, plain {plain_b:.3f} ms, bound {bound_b:.4f} ms",
+          flush=True)
+    if not all(np.isfinite(v) and v <= 1.0 for v in err_over_tol.values()):
+        fail("R1: the kernels disagree with the plain version beyond the tolerance")
+    if not repeat:
+        fail("R1: two backward calls on the same inputs gave different bits")
+    return rec
+
+
 def training_phase(dev, packed_dir: str, work: str) -> dict:
     """Each net trained on the packed rows at its config's widths and
     batch (seg 4 scenes of 20,000 points at 96x96x48 x 2 mm, NUNOCS 34 x
@@ -1963,10 +2095,15 @@ def training_phase(dev, packed_dir: str, work: str) -> dict:
         trainer = T.Trainer(model=model, cfg=cfg, loss_fn=loss_fn,
                             train_data=lambda: islice(ds.batches(bs), n_steps),
                             ckpt_dir=os.path.join(art, net))
+        launch_counts(zero=True)
         t0 = time.perf_counter()
         state = trainer.fit(state, n_epochs=1, log_every=n_steps, verbose=False)
         torch.cuda.synchronize()
         fit_s = time.perf_counter() - t0
+        r1_fit = launch_counts()["row_group_norm_relu"]
+        if r1_fit != (3 * n_steps if net == "seg" else 0):
+            fail(f"training [{net}]: R1 launched {r1_fit} times in a fit of {n_steps} steps "
+                 f"(the seg head's: 3 a step, forward and backward; the PointNets': none)")
         host = list(islice(ds.batches(bs), 2))
         b0, b1 = (T.to_device(b, dev) for b in host)
 
@@ -2016,14 +2153,16 @@ def training_phase(dev, packed_dir: str, work: str) -> dict:
             l_after = float(loss_fn(s3.model, b0, False)[0])
         del s3, model3
         rec = {"batch": bs, "rows": len(ds), "fit_steps": n_steps, "fit_s": fit_s,
+               "r1_launches_fit": r1_fit,
                "ms_a_step": ms, "samples_per_s": bs / ms * 1e3, "peak_mib": peak,
                "launches_a_step": busy["launches"] / 10, "busy_share": busy["busy_share"],
                "predicter_max_abs_err": pred_err, "resume_loss_diff": resume_err,
                "resume_param_diff": param_err, "loss_repeated_batch": [l_before, l_after]}
         record[net] = rec
         print(f"training [{net}] batch {bs}, {len(ds)} rows: fit of {n_steps} steps "
-              f"{fit_s:.2f} s; a step {ms:.3f} ms (CUDA events), {rec['samples_per_s']:.1f} "
-              f"samples/s, peak {peak:.1f} MiB, {rec['launches_a_step']:.0f} launches a step, "
+              f"{fit_s:.2f} s ({r1_fit} R1 launches); a step {ms:.3f} ms (CUDA events), "
+              f"{rec['samples_per_s']:.1f} samples/s, peak {peak:.1f} MiB, "
+              f"{rec['launches_a_step']:.0f} launches a step, "
               f"busy {100 * busy['busy_share']:.1f}%; predicter on best_train.ckpt max |diff| "
               f"{pred_err:.3e}; resumed last.ckpt: next-step loss {float(l_res):.6f} vs "
               f"{float(l_cont):.6f} in process (|diff| {resume_err:.3e}, params after it "
@@ -2058,11 +2197,12 @@ def train_parity_phase(dev, card: str, packed_dir: str, work: str) -> dict:
     pass and ``best_val`` at each epoch end (the grasp net's dropout masks
     carried in), three runs: on the card, on the card from the parameters
     nudged by 1e-6 relative (the floor) and on the host.  With every launch
-    count set to 0 just before and read just after (no kernel on this path).
-    Fails unless the host's run holds to the card's as the protocol holds
-    two runs (``compare``: the same ``best_val`` epoch, each val loss within
-    max(2 x the floor's difference, 1e-3) relative) and its first loss is
-    within ``TRAIN_PARITY_FIRST_REL`` of the card's."""
+    count set to 0 just before and read just after (R1 in the seg net's
+    card runs, no other kernel).  Fails unless the host's run holds to the
+    card's as the protocol holds two runs (``compare``: the same
+    ``best_val`` epoch, each val loss within max(2 x the floor's
+    difference, 1e-3) relative) and its first loss is within
+    ``TRAIN_PARITY_FIRST_REL`` of the card's."""
     from scripts import train_parity_protocol as tpp
 
     t0 = time.perf_counter()
@@ -2107,6 +2247,8 @@ def train_parity_phase(dev, card: str, packed_dir: str, work: str) -> dict:
     wall = time.perf_counter() - t0
     print(f"paired training: 3 nets x 3 runs in {wall:.2f} s; launches {json.dumps(launches)}",
           flush=True)
+    if launches["row_group_norm_relu"] == 0:
+        fail("paired training: the seg net's card runs launched no R1")
     return {"nets": rows, "wall_s": wall, "launches": launches}
 
 
@@ -2134,7 +2276,6 @@ def affordance_phase(dev, card: str):
     place of the tracked ones: the medoid and the codebook equal to the same
     call on the CPU, the canonical affordance against the tracked file.
     Returns (launches, record)."""
-    from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
     from catgrasp_tpu_torch.pipelines import generate_affordance as ga
     from catgrasp_tpu_torch.pipelines import make_canonical as mc
     from catgrasp_tpu_torch.sim import env_semantic as es
@@ -2149,9 +2290,7 @@ def affordance_phase(dev, card: str):
         return drop(*args, **kw)
 
     es.drop_on_fixture = drop_recorder
-    collision.box_hits.launches = 0
-    render_march.march_csg.launches = 0
-    fused_rollout.rollout_fused.launches = 0
+    launch_counts(zero=True)
     t0 = time.perf_counter()
     try:
         out = ga.generate_affordance("nut", "train", 0, db, chunk=4096, device=dev,
@@ -2160,9 +2299,7 @@ def affordance_phase(dev, card: str):
     finally:
         es.drop_on_fixture = drop
     wall = time.perf_counter() - t0
-    launches = {"box_hits": collision.box_hits.launches,
-                "march_csg": render_march.march_csg.launches,
-                "rollout_fused": fused_rollout.rollout_fused.launches}
+    launches = launch_counts()
     rets = out["rets"]
     n = len(rets)
     cmp = affordance_protocol.compare_labels(out, tracked)
@@ -2174,7 +2311,8 @@ def affordance_phase(dev, card: str):
           f"Pearson {cmp['affordance_pearson']:.4f} (limit {AFFORDANCE_PEARSON_MIN}; mean "
           f"|diff| {cmp['affordance_mean_abs_diff']:.4f})", flush=True)
     print(f"affordance launches: {json.dumps(launches)} (no kernel on this path)", flush=True)
-    if launches != {"box_hits": 0, "march_csg": 0, "rollout_fused": 0}:
+    if launches != {"box_hits": 0, "march_csg": 0, "rollout_fused": 0,
+                    "row_group_norm_relu": 0}:
         fail(f"affordance: launches {launches}, expected none")
     if rets.shape != (4096,) or out["affordance"].shape != (1024,) \
             or not np.isfinite(out["affordance"]).all() or set(np.unique(rets)) - {0, 1, 2}:
@@ -2339,16 +2477,6 @@ def paired_pick_phase(dev, card: str) -> dict:
 ROWS_PER_CHUNK = 256  # render_chunked's default: 7 strips a 1544 x 2064 frame
 
 
-def launch_counts(zero: bool = False) -> dict:
-    """Every kernel's launch count (set to 0 first with ``zero``)."""
-    from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
-    fns = {"box_hits": collision.box_hits, "march_csg": render_march.march_csg,
-           "rollout_fused": fused_rollout.rollout_fused}
-    for fn in fns.values():
-        fn.launches = 0 if zero else fn.launches
-    return {k: fn.launches for k, fn in fns.items()}
-
-
 def fullres_frame(scene, state, params) -> dict:
     """The reference camera (``Camera.from_config`` on ``config.yml``: its K,
     1544 x 2064) over the front half's settled nut pile through
@@ -2380,7 +2508,8 @@ def fullres_frame(scene, state, params) -> dict:
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = launch_counts()
     n_strips = -(-H // rows)
-    if launches != {"box_hits": 0, "march_csg": n_strips, "rollout_fused": 0}:
+    if launches != {"box_hits": 0, "march_csg": n_strips, "rollout_fused": 0,
+                    "row_group_norm_relu": 0}:
         fail(f"render_chunked at {H}x{W}: launches {launches}, expected {n_strips} of K2")
     if frame["depth"].shape != (H, W) or not all(torch.isfinite(v).all() for v in frame.values()):
         fail("the full-resolution frame has the wrong shape or non-finite values")
@@ -2689,19 +2818,24 @@ def calibration_phase(dev, work: str, scenes_dir: str) -> dict:
     shutil.copy(os.path.join(REPO, "artifacts_tracked", "nut", "seg", "best_val.ckpt"),
                 os.path.join(art, "seg"))
     torch.cuda.synchronize()
+    launch_counts(zero=True)
     t0 = time.perf_counter()
     out = cb.main(["--class_name", "nut", "--artifacts", art, "--val_dir", scenes_dir])
     wall = time.perf_counter() - t0
+    launches = launch_counts()
     if out is None or not os.path.exists(os.path.join(art, "seg", "calib.json")):
         fail("calibrate_bandwidth wrote no calib.json")
     with open(os.path.join(art, "seg", "calib.json")) as fh:
         written = json.load(fh)
     print(f"calibrate_bandwidth (the tracked nut seg net, {written['n_scenes']} training-data "
           f"scenes, {wall:.2f} s): bandwidth {written['bandwidth']}, stats "
-          f"{json.dumps(written['stats'])} (the tracked calib.json: 0.01)", flush=True)
+          f"{json.dumps(written['stats'])} (the tracked calib.json: 0.01); launches "
+          f"{json.dumps(launches)}", flush=True)
     if written != out or not 0.006 <= written["bandwidth"] <= 0.02:
         fail("calibrate_bandwidth's calib.json is not what it computed")
-    return {"wall_s": wall, **written}
+    if launches["row_group_norm_relu"] == 0:
+        fail("calibrate_bandwidth: the seg net's forwards launched no R1")
+    return {"wall_s": wall, "launches": launches, **written}
 
 
 def reducers_phase(dev) -> dict:
@@ -2761,10 +2895,10 @@ PARALLEL_SCENES, PARALLEL_SHARDS, PARALLEL_NET_SHARDS = 64, 4, 2
 
 def parallel_phase(dev, scene, packed_dir: str) -> dict:
     """``parallel/`` on the card, with every launch count set to 0 just
-    before and read just after (no kernel on this path): ``make_mesh()`` over
-    the real devices; ``sharded_rollout`` of 64 nut piles of the front
-    half's pile config on the real mesh and on a virtual mesh of 4 x the
-    card, against one ``rollout_batch`` (within 1e-5 m after 10 steps; after
+    before and read just after (R1 in the seg net's steps, no other kernel):
+    ``make_mesh()`` over the real devices; ``sharded_rollout`` of 64 nut
+    piles of the front half's pile config on the real mesh and on a virtual
+    mesh of 4 x the card, against one ``rollout_batch`` (within 1e-5 m after 10 steps; after
     50, the largest difference and the share of active bodies within 1e-4
     m); ``sharded_map`` of a per-scene function; one mesh train step of each
     net at its config's width and batch on a virtual mesh of 2 x the card
@@ -2894,8 +3028,10 @@ def parallel_phase(dev, scene, packed_dir: str) -> dict:
         del one, sharded, model, batch
     rec["launches"] = launch_counts()
     rec["wall_s"] = time.perf_counter() - t_phase
-    print(f"parallel: launches {json.dumps(rec['launches'])} (no kernel on this path); "
+    print(f"parallel: launches {json.dumps(rec['launches'])} (R1 in the seg net's steps); "
           f"{rec['wall_s']:.1f} s", flush=True)
+    if rec["launches"]["row_group_norm_relu"] == 0:
+        fail("parallel: the seg net's mesh and one-device steps launched no R1")
     return rec
 
 
@@ -3069,6 +3205,7 @@ def run_all(dev, logs, card, work) -> None:
     learned_launches, learned, nets = learned_round(dev)
     db_launches, grasp_db = grasp_db_phase(dev)
     td_launches, tdata, packed_dir = training_data_phase(dev, work)
+    r1 = check_row_group_norm(dev)
     training = training_phase(dev, packed_dir, work)
     train_parity = train_parity_phase(dev, card, packed_dir, work)
     aff_launches, affordance = affordance_phase(dev, card)
@@ -3207,6 +3344,23 @@ def run_all(dev, logs, card, work) -> None:
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"], "library_ms": None,
          "regimes_ms": k3["regimes_ms"], "footprint": k3["footprint"],
          "shapes": k3["shapes"]},
+        {"name": "row_group_norm_relu", "route": "cuda",
+         "source": "catgrasp_tpu_torch/csrc/row_group_norm.cu",
+         "replaces": None,  # the JAX package leaves the head's norm to XLA
+         **{f"launches_{k}": v["row_group_norm_relu"] for k, v in (
+             ("main_path", launches), ("bench_path", bench_launches),
+             ("pickplace_path", pp_launches), ("screw_round", screw_launches),
+             ("hnm_round", hnm_launches), ("floating_attempt", float_launches),
+             ("grid_round", grid_launches), ("learned_round", learned_launches),
+             ("grasp_db", db_launches), ("training_data", td_launches),
+             ("train_parity", train_parity["launches"]), ("affordance", aff_launches),
+             ("dynamics_round", dyn_launches), ("paired_pick", paired["launches"]),
+             ("parallel", par["launches"]),
+             ("combined_sampler", remaining["samplers"]["launches"]),
+             ("rescore", remaining["rescore"]["launches"]),
+             ("calibration", remaining["calibration"]["launches"]))},
+         "launches_training_fit": {k: v["r1_launches_fit"] for k, v in training.items()},
+         **r1, "library_ms": None},
     ]
     print(json.dumps({"nets": nets}), flush=True)
     print(json.dumps({"grasp_db": {k: v for k, v in grasp_db.items() if k != "k1"}}), flush=True)

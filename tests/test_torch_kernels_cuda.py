@@ -8,10 +8,13 @@ it (nor does ``tests/test_torch_isolation.py``):
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from catgrasp_tpu_torch.geom import csg, primitives
 from catgrasp_tpu_torch.grasp import filter as gfilter
-from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march
+from catgrasp_tpu_torch.nn.pointnet import GN_EPS
+from catgrasp_tpu_torch.nn.voxelnet import SegNet
+from catgrasp_tpu_torch.ops import collision, fused_rollout, render_march, row_group_norm
 from catgrasp_tpu_torch.render import raymarch
 from catgrasp_tpu_torch.sim import engine, env_pile
 from catgrasp_tpu_torch.sim.env_grasp import GripperSpec
@@ -550,3 +553,108 @@ def test_march_kernel_on_the_visibility_batch(dev):
     for ck, cp in zip(counts_k, counts_p):
         assert int(cp.sum()) > 0
         assert int((ck - cp).abs().sum()) <= 0.005 * int(cp.sum())
+
+
+def _row_gn_case(m, dev, seed=0):
+    """The seg head's norm input at m rows, from numpy: x (m, 64) with rows
+    of their own offset and scale, gamma near 1, beta, dy; and per element
+    of x its group's condition kappa = rstd * max |x| (f64).  dy is zero
+    within 1e-3 of the ReLU's kink (the plain version's pre-ReLU output),
+    where a rounding difference (up to ~1e-4 in the worst-conditioned groups
+    here) may send the two sides to the kink's two branches: the gradient
+    there is a choice, not a value."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 2, (m, 1)) + rng.uniform(0.5, 2.0, (m, 1)) * rng.normal(size=(m, 64))
+    w, b = 1 + 0.2 * rng.normal(size=64), 0.2 * rng.normal(size=64)
+    dy = rng.normal(size=(m, 64))
+    x, w, b, dy = (torch.as_tensor(a, dtype=torch.float32, device=dev) for a in (x, w, b, dy))
+    pre = F.group_norm(x, 8, w, b, GN_EPS)
+    xg = x.double().view(m, 8, 8)
+    rstd = (xg.var(-1, unbiased=False) + GN_EPS).rsqrt()
+    kappa = (rstd * xg.abs().amax(-1)).repeat_interleave(8, dim=1)
+    return x, w, b, torch.where(pre.abs() < 1e-3, 0.0, dy), pre, kappa, \
+        rstd.repeat_interleave(8, dim=1)
+
+
+def _row_gn_grads(fn, x, w, b, dy):
+    x, w, b = (t.detach().clone().requires_grad_() for t in (x, w, b))
+    y = fn(x, w, b, 8, GN_EPS)
+    y.backward(dy)
+    return y.detach(), x.grad, w.grad, b.grad
+
+
+@pytest.mark.parametrize("m", [1, 4099, 2_200_000])  # one row, ragged, the seg cell's batch
+def test_row_group_norm_relu_matches_plain(dev, m):
+    """The head's GroupNorm + ReLU kernels against the plain version on the
+    card: forward, dx, dgamma, dbeta; two backward calls give the same bits.
+    The unit of every tolerance is u = 2^-20 (1 + kappa) of an element's
+    group: both sides take the statistics of 8 f32 values in another order
+    and form (torch: Welford, x * scale + shift), so the mean carries a few
+    ulps of the group's largest |x|, which x_hat, rstd, y and dx carry
+    multiplied by rstd.  y within u (1 + |y|); dx within u rstd (1 + 4 max
+    |dy gamma| of the group), the size of its three terms; dgamma and dbeta
+    are sums over the m rows in another order, within the sum of u |g|
+    (1 + |x_hat|) per channel (the f32 rounding of such sums is far below
+    it)."""
+    x, w, b, dy, pre, kappa, rstd = _row_gn_case(m, dev)
+    if m > 1:  # about half the ReLU off
+        assert 0.4 < (pre > 0).float().mean().item() < 0.6
+    n0 = row_group_norm.row_group_norm_relu.launches
+    k = _row_gn_grads(row_group_norm.row_group_norm_relu, x, w, b, dy)
+    k2 = _row_gn_grads(row_group_norm.row_group_norm_relu, x, w, b, dy)
+    p = _row_gn_grads(row_group_norm.row_group_norm_relu_plain, x, w, b, dy)
+    torch.cuda.synchronize()
+    assert row_group_norm.row_group_norm_relu.launches == n0 + 6
+    u = 2.0 ** -20 * (1 + kappa)
+    g = dy.double() * (pre > 0)
+    gg_max = (g * w.double()).abs().view(m, 8, 8).amax(-1).repeat_interleave(8, dim=1)
+    x_hat = F.group_norm(x.double(), 8, None, None, GN_EPS)
+    for name, a, e, tol in (("y", k[0], p[0], u * (1 + p[0].double().abs())),
+                            ("dx", k[1], p[1], u * rstd * (1 + 4 * gg_max)),
+                            ("dgamma", k[2], p[2], (u * g.abs() * (1 + x_hat.abs())).sum(0)),
+                            ("dbeta", k[3], p[3], (u * g.abs()).sum(0))):
+        diff = (a.double() - e.double()).abs()
+        assert (diff <= tol).all(), (name, (diff / tol).max().item(), diff.max().item())
+    for a, e in zip(k[1:], k2[1:]):
+        assert torch.equal(a, e)
+
+
+def test_row_group_norm_relu_rejects_what_the_kernels_cannot_take(dev):
+    x, w, b = _row_gn_case(16, dev)[:3]
+    op = row_group_norm.row_group_norm_relu
+    n0 = op.launches
+    for args, match in (((x.double(), w, b, 8), "float32"),
+                        ((x[:, :32].contiguous(), w[:32], b[:32], 8), "in 8 groups"),
+                        ((x, w, b, 4), "in 8 groups"),
+                        ((x[None], w, b, 8), "in 8 groups"),
+                        ((x[::2], w, b, 8), "contiguous"),
+                        ((x.reshape(-1)[1:1 + 64 * 15].view(15, 64), w, b, 8), "aligned"),
+                        ((x, w.cpu(), b, 8), "CUDA"),
+                        ((x, w, b.double(), 8), "float32")):
+        with pytest.raises(ValueError, match=match):
+            op(*args, GN_EPS)
+    assert op.launches == n0
+
+
+def test_segnet_head_runs_the_row_group_norm_kernels(dev):
+    """A SegNet forward and backward on the card at a small batch launches
+    the head's forward kernel once and its two backward kernels; the eval's
+    forward in inference mode launches the forward alone."""
+    torch.manual_seed(0)
+    net = SegNet(voxel_size=0.002, grid_dims=(32, 32, 16)).to(dev)
+    rng = np.random.default_rng(0)
+    xyz = torch.as_tensor(rng.uniform(0, 0.06, (2, 3000, 3)), dtype=torch.float32, device=dev)
+    nrm = F.normalize(torch.randn(2, 3000, 3, device=dev), dim=-1)
+    origin = torch.zeros(2, 3, device=dev)
+    op = row_group_norm.row_group_norm_relu
+    n0 = op.launches
+    off, obj = net(xyz, nrm, origin)
+    (off.square().sum() + obj.sum()).backward()
+    torch.cuda.synchronize()
+    assert op.launches == n0 + 3
+    assert torch.isfinite(net.GroupNorm_0.weight.grad).all()
+    assert net.GroupNorm_0.bias.grad.abs().sum().item() > 0
+    with torch.inference_mode():
+        net(xyz[0], nrm[0], origin[0])
+    torch.cuda.synchronize()
+    assert op.launches == n0 + 4

@@ -32,8 +32,9 @@ from catgrasp_tpu.nn.voxelnet import voxelize as jvoxelize
 from catgrasp_tpu.nn import voxelnet as jvoxelnet
 from catgrasp_tpu_torch import convert
 from catgrasp_tpu_torch.geom import primitives as prim
-from catgrasp_tpu_torch.nn.pointnet import PointNetCls, PointNetSeg
+from catgrasp_tpu_torch.nn.pointnet import GN_EPS, PointNetCls, PointNetSeg
 from catgrasp_tpu_torch.nn.voxelnet import SegNet, voxelize
+from catgrasp_tpu_torch.ops.row_group_norm import row_group_norm_relu
 from catgrasp_tpu_torch.predict.ckpt import read_params
 
 torch.set_num_threads(2)
@@ -186,3 +187,41 @@ def test_segnet_unet_input_keeps_the_one_scene_layout():
         u_view = net.VoxelUNet_0(grid[0].permute(3, 0, 1, 2)[None])
     assert grid.shape == (1, *GRID, 4)
     assert torch.equal(u_batch, u_view)
+
+
+@pytest.mark.parametrize("m", [1, 4099])
+def test_row_group_norm_relu_on_the_cpu_is_the_head_expression(m):
+    """On CPU tensors the head's GroupNorm + ReLU op is the expression the
+    head had, ``relu(GroupNorm_0(x))``, bit for bit: the output and the
+    gradients of x, gamma and beta; no kernel is launched."""
+    rng = np.random.default_rng(m)
+    x = torch.as_tensor(rng.normal(0, 2, (m, 1)) + rng.normal(size=(m, 64)), dtype=torch.float32)
+    gn = torch.nn.GroupNorm(8, 64, eps=GN_EPS)
+    with torch.no_grad():
+        gn.weight.copy_(torch.as_tensor(1 + 0.2 * rng.normal(size=64)))
+        gn.bias.copy_(torch.as_tensor(0.2 * rng.normal(size=64)))
+    dy = torch.as_tensor(rng.normal(size=(m, 64)), dtype=torch.float32)
+    n0 = row_group_norm_relu.launches
+    outs = []
+    for head in (lambda x: F.relu(gn(x)),
+                 lambda x: row_group_norm_relu(x, gn.weight, gn.bias, 8, GN_EPS)):
+        xs = x.clone().requires_grad_()
+        gn.zero_grad()
+        y = head(xs)
+        y.backward(dy)
+        outs.append((y.detach(), xs.grad, gn.weight.grad.clone(), gn.bias.grad.clone()))
+    assert 0 < int((outs[0][0] > 0).sum()) < outs[0][0].numel()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert row_group_norm_relu.launches == n0
+
+
+def test_segnet_state_dict_keys_are_the_checkpoints():
+    """The head keeps its ``GroupNorm_0`` parameters under their flax names:
+    SegNet's state dict has exactly the keys the converter gives a tracked
+    seg checkpoint, and loads it strictly."""
+    sd = convert.flax_state_dict(_params("nut", "seg"))
+    net = SegNet(voxel_size=VOXEL, grid_dims=GRID)
+    assert set(net.state_dict()) == set(sd)
+    assert {"GroupNorm_0.weight", "GroupNorm_0.bias", "Dense_0.weight"} <= set(sd)
+    net.load_state_dict(sd, strict=True)
